@@ -1,0 +1,74 @@
+"""xai_tpu_torch stands alone: it imports neither jax nor xai_tpu, and its
+entry points never fall back to the CPU on their own.
+
+The imports are checked in a subprocess, because this test process has
+already imported jax (conftest.py).
+"""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import xai_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(xai_tpu_torch.__path__,
+                                               "xai_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "xai_tpu"))
+assert not bad, bad
+assert "xai_tpu_torch.runners.evaluate_perturbation" in names, names
+print(len(names))
+"""
+
+
+def _run(args, cwd, timeout=120):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_no_jax_and_no_xai_tpu():
+    r = _run(["-c", _IMPORT_ALL], REPO)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20        # every module was imported
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    from xai_tpu_torch.runners import evaluate_perturbation as TD
+    from xai_tpu_torch.runners.common import build_bundle
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_bundle("TINY_R")
+    args = TD.build_parser().parse_args(
+        ["--model", "TINY_R", "--synthetic", "1", "--image_count", "1",
+         "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.evaluate_perturbation(args)
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_gpu_or_package(tmp_path, where):
+    """chip_smoke.py exits non-zero and prints no result line when there is
+    no GPU, and when it stands in a directory without the package."""
+    if where == "repo":
+        if torch.cuda.is_available():
+            pytest.skip("this checks the behaviour on a machine without CUDA")
+        cwd = REPO
+    else:
+        cwd = str(tmp_path)
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), cwd)
+    r = _run(["chip_smoke.py"], cwd)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,23 @@
+"""xai_tpu_torch — the PyTorch / CUDA (NVIDIA Hopper) port of ``xai_tpu``.
+
+Module names mirror ``xai_tpu`` so each piece has an obvious counterpart:
+
+- ``models``   — ResNet family as ``nn.Module``s with stage taps (NCHW inside)
+- ``convert``  — the weight carry from ``xai_tpu``'s saved ``.npz`` params
+- ``methods``  — gradient-path attributions (grad, input×grad, IG, LIG)
+- ``metrics``  — the 10-score perturbation battery (ranked-reveal curves)
+- ``ops``      — preprocessing, the blur substrate, curve statistics
+- ``kernels``  — hand-written CUDA kernels for ``sm_90a`` (built at first
+  use with ``nvcc``) and their plain PyTorch versions
+- ``data``     — ImageNet-val stream and class maps
+- ``runners``  — CLI drivers with the reference's flags
+
+Public functions keep ``xai_tpu``'s layouts (images ``[H, W, C]``, saliency
+``[H, W]``); the models run NCHW.  Entry points run on CUDA unless the
+caller passes ``device="cpu"``; a kernel wrapper given a CPU tensor runs its
+plain PyTorch version, and given a CUDA tensor launches its kernel or raises.
+
+Nothing here imports ``jax`` or ``xai_tpu``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,127 @@
+"""Shared runner plumbing: model construction by CLI name, device choice,
+per-image gates, result CSV writing.
+
+Counterpart of ``xai_tpu/runners/common.py``.  Entry points run on CUDA
+unless the caller passes ``device="cpu"``; with no device and no CUDA they
+raise rather than carry on on the CPU.
+"""
+from __future__ import annotations
+
+import csv
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..convert.from_jax import load_params
+from ..models import resnet
+from ..models.common import ModelBundle, ModelMeta
+from ..ops.blur import make_blur_fn
+from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize
+
+# reference per-model batch sizes (evaluatePerturbation.py:627-677); the
+# CNN rows of xai_tpu's table
+MODEL_TABLE = {
+    "R50": ("cnn", 50), "R101": ("cnn", 50), "R152": ("cnn", 50),
+    "RNXT": ("cnn", 25),
+    # 1-block-per-stage ResNets for fast CPU runs of the full driver path:
+    # TINY_CNN at 224 px, TINY_R at 64 px (the driver-parity model)
+    "TINY_CNN": ("cnn", 50), "TINY_R": ("cnn", 50),
+}
+
+# xai_tpu models whose family this package has not ported yet
+NOT_PORTED = {"VIT16": "A10", "VIT32": "A10", "TINY_VIT": "A10",
+              "CLIP16": "A11", "CLIP32": "A11"}
+
+
+def model_entry(model_name: str):
+    """(family, batch size) of a CLI model name."""
+    if model_name in NOT_PORTED:
+        raise NotImplementedError(
+            f"--model {model_name}: its family is not ported yet "
+            f"(ROADMAP.md item {NOT_PORTED[model_name]})")
+    return MODEL_TABLE[model_name]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA.  Raises when CUDA is asked for and absent."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass "
+                               "device='cpu' to run on the CPU")
+        # f32 means f32: by default cuDNN runs float32 convolutions in
+        # TF32 (~3 decimal digits), which would break parity with xai_tpu
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def build_bundle(model_name: str, params_path: Optional[str] = None,
+                 seed: int = 0, device=None) -> ModelBundle:
+    """The bundle for a reference CLI model name.  Weights come from an
+    ``xai_tpu``-saved ``.npz`` if given, else a seeded random init."""
+    device = resolve_device(device)
+    family, batch = model_entry(model_name)
+    if model_name in ("TINY_CNN", "TINY_R"):
+        module = resnet.ResNet(layers=(1, 1, 1, 1))
+        meta = (ModelMeta(name="TINY_R", family="cnn", img_hw=64,
+                          batch_size=batch) if model_name == "TINY_R" else
+                ModelMeta(name="resnet50", family="cnn", batch_size=batch))
+    else:
+        module = resnet.make_model(resnet.CLI_ARCH.get(model_name,
+                                                       model_name))
+        meta = ModelMeta(name=model_name, family=family, batch_size=batch)
+    resnet.init_random(module, seed)
+    if params_path:
+        module.load_state_dict(load_params(params_path))
+    return ModelBundle(meta, module.to(device))
+
+
+def normalize_input(trans_img: np.ndarray, family: str,
+                    device) -> torch.Tensor:
+    """[H, W, C] in [0, 1] -> normalized [H, W, C] on ``device``."""
+    if family != "cnn":
+        raise NotImplementedError(f"{family} normalization is not ported")
+    return normalize(torch.as_tensor(trans_img, device=device),
+                     IMAGENET_MEAN, IMAGENET_STD)
+
+
+def image_gates(bundle, x: torch.Tensor, blur_fn, gates: bool = True):
+    """The reference's per-image sanity gates
+    (evaluatePerturbation.py:561-570): predictions for the original, blurred
+    and black images; the image is usable iff blur/black confidences are
+    lower and classes differ.  ``gates=False`` (--skip_gates / synthetic
+    runs) returns after the first forward.  x: [H, W, C]."""
+    xb = x.permute(2, 0, 1)[None].contiguous()
+    probs = bundle.probs(xb)[0].cpu().numpy()
+    target = int(probs.argmax())
+    original_pred = float(probs[target])
+    if not gates:
+        return target, original_pred, True
+    bl = bundle.probs(blur_fn(xb))[0].cpu().numpy()
+    blur_class = int(bl.argmax())
+    blur_own = float(bl[blur_class])
+    bk = bundle.probs(torch.zeros_like(xb))[0].cpu().numpy()
+    black_class = int(bk.argmax())
+    black_own = float(bk[black_class])
+    ok = not (blur_own >= original_pred or black_own >= original_pred
+              or target == black_class or target == blur_class)
+    return target, original_pred, ok
+
+
+def write_result_csv(folder: str, file_name: str, counters: dict,
+                     images_used: int, attr_time: float, total_time: float):
+    """Identical CSV layout to the reference (evaluatePerturbation.py:606-618)."""
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, file_name + ".csv"), "w") as f:
+        w = csv.writer(f)
+        for k in counters:
+            w.writerow([k, str(counters[k] / images_used)])
+        w.writerow(["Attr Avg Runtime", str(attr_time / images_used)])
+        w.writerow(["Total Runtime", str(total_time)])
+
+
+def default_blur():
+    return make_blur_fn(31, 31.0)

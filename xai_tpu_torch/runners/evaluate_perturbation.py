@@ -1,0 +1,154 @@
+"""Flagship driver: attribution -> 10-metric perturbation battery -> CSV.
+
+Counterpart of ``xai_tpu/runners/evaluate_perturbation.py`` with the same
+flags and output layout (the reference's
+XAI_Survey/evaluations/evaluatePerturbation.py).  ``--cuda_num N`` selects
+``cuda:N``; ``--synthetic N`` substitutes a deterministic random image
+stream when no ImageNet directory is available.
+
+Per-image flow (reference :520-599): sorted val stream -> correctly-
+classified filter -> sanity gates (blur/black predictions) -> class-balance
+quota -> attribution via the registry -> run_battery (3 reveal passes fed
+by the reveal kernel) -> accumulate -> CSV.
+
+Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
+--attr_func ig --synthetic 2 --image_count 2``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+from ..data.classmaps import load_correct_mask
+from ..data.imagenet import ImageNetValStream
+from ..metrics.curves import run_battery
+from ..registry import AttrContext, get_attribution
+from .common import (build_bundle, default_blur, image_gates, model_entry,
+                     normalize_input, resolve_device, write_result_csv)
+
+
+def _reject_unported(args) -> None:
+    """Flags whose paths are not ported yet raise, naming the ROADMAP.md
+    item that ports them; none is silently ignored."""
+    unported = [
+        (args.image_batch > 1, "--image_batch > 1", "A7"),
+        (args.attr_dtype == "bf16", "--attr_dtype bf16", "A7"),
+        (args.save_maps, "--save_maps", "A12"),
+        (args.shard_images, "--shard_images", "A14"),
+        (bool(args.profile_dir), "--profile_dir", "A14"),
+    ]
+    for given, flag, item in unported:
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP.md item {item})")
+
+
+def evaluate_perturbation(args, device=None) -> dict:
+    """Run the driver; ``device`` defaults to ``cuda:<--cuda_num>``."""
+    _reject_unported(args)
+    device = resolve_device(device or f"cuda:{args.cuda_num}")
+    family, _ = model_entry(args.model)
+    bundle = build_bundle(args.model, args.params_path, device=device)
+    blur = default_blur()
+
+    correct = load_correct_mask(args.class_maps_dir, args.model) \
+        if args.class_maps_dir else None
+
+    num_classes = 1000
+    images_per_class = int(np.ceil(args.image_count / num_classes))
+    classes_used = [0] * num_classes
+
+    stream = ImageNetValStream(args.dataset_path,
+                               img_hw=bundle.meta.img_hw,
+                               synthetic=args.synthetic)
+    # plain-dict accumulation: the reference's `Counter +=` silently drops
+    # keys whose running sum is <= 0; we keep every metric column
+    result = {}
+    images_used = 0
+    attr_time = 0.0
+    t0 = time.time()
+    gating = not (args.synthetic or args.skip_gates)
+
+    for item in stream:
+        if images_used == args.image_count:
+            break
+        if correct is not None and correct[item.index] == 0:
+            continue
+        x = normalize_input(item.trans_img, family, device)
+        target, _, ok = image_gates(bundle, x, blur, gates=gating)
+        if not ok and gating:
+            continue
+        if classes_used[target] == images_per_class:
+            continue
+        classes_used[target] += 1
+
+        ctx = AttrContext(bundle=bundle, x=x, trans_img=item.trans_img,
+                          target=target, img_hw=bundle.meta.img_hw)
+        t = time.time()
+        # returns host numpy, so the device work is done when it returns
+        saliency = get_attribution(family, args.attr_func, ctx)
+        attr_time += time.time() - t
+
+        scores = run_battery(bundle.apply, x, saliency, blur, chunk=45,
+                             target=target)
+        for k, v in scores.items():
+            result[k] = result.get(k, 0.0) + v
+        images_used += 1
+        if args.verbose:
+            print(f"[{images_used}/{args.image_count}] {item.name} "
+                  f"cls={target} MAS_ins={scores['MAS_ins']:.4f}")
+
+    total_time = time.time() - t0
+    if images_used:
+        folder = os.path.join(args.output_dir, args.model)
+        write_result_csv(folder, f"{args.attr_func}_{args.image_count}_images",
+                         result, images_used, attr_time, total_time)
+    return {k: v / max(images_used, 1) for k, v in result.items()}
+
+
+def build_parser():
+    p = argparse.ArgumentParser("evaluate_perturbation")
+    p.add_argument("--image_count", type=int, default=1000)
+    p.add_argument("--model", type=str, default="R101",
+                   help="R50, R101, R152, RNXT")
+    p.add_argument("--attr_func", type=str, default="ig")
+    p.add_argument("--cuda_num", type=int, default=0,
+                   help="CUDA device index")
+    p.add_argument("--dataset_path", type=str, default="../../../ImageNet")
+    p.add_argument("--class_maps_dir", type=str, default="")
+    p.add_argument("--params_path", type=str, default="",
+                   help="params saved by xai_tpu's save_params (.npz)")
+    p.add_argument("--output_dir", type=str, default="pert_test_results")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="use N deterministic synthetic images (no dataset)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="not ported yet (raises)")
+    p.add_argument("--image_batch", type=int, default=1,
+                   help="values > 1 are not ported yet (raise)")
+    p.add_argument("--attr_dtype", type=str, default="f32",
+                   choices=["f32", "bf16"],
+                   help="bf16 is not ported yet (raises)")
+    p.add_argument("--save_maps", action="store_true",
+                   help="not ported yet (raises)")
+    p.add_argument("--skip_gates", action="store_true",
+                   help="bypass the blur/black sanity gates (useful with "
+                        "random weights; the reference gates assume a "
+                        "trained model)")
+    p.add_argument("--shard_images", action="store_true",
+                   help="not ported yet (raises)")
+    return p
+
+
+def main(argv=None):
+    args, _ = build_parser().parse_known_args(argv)
+    scores = evaluate_perturbation(args)
+    print({k: round(v, 4) for k, v in scores.items()})
+
+
+if __name__ == "__main__":
+    main()
