@@ -12,19 +12,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off for cuDNN and cuBLAS);
 2. build every kernel in xai_tpu_torch/csrc with nvcc, all at once;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes and at ragged ones (blur: max |delta| < 1e-5;
-   reveal: bit-exact), and time kernel, plain version and one library
-   call with CUDA events;
-4. drive the main path through its entry point:
-   evaluate_perturbation --model R101 --attr_func ig --synthetic 2 at
-   224 px with seeded random weights, launch counters zeroed just before
-   and read just after; the CSV must hold 10 finite scores, and each
-   kernel must have launched (per scored image: blur >= 1, and reveal
-   3 passes * ceil(225 / 45) chunks = 15);
+   main paths' shapes and at ragged ones (blur: max |delta| < 1e-5;
+   reveal and quickshift parents: bit-exact), and time kernel, plain
+   version and, where one exists, one library call with CUDA events;
+4. drive both main paths through their entry point,
+   evaluate_perturbation --model R101 --synthetic 2 at 224 px with seeded
+   random weights, first --attr_func ig, then --attr_func lime, launch
+   counters zeroed just before each and read just after; each CSV must
+   hold 10 finite scores, and per scored image blur must launch >= 1 time,
+   reveal 3 passes * ceil(225 / 45) chunks = 15 times, and on the LIME
+   path quickshift once;
 5. check the answers against a reference on a small input: TINY_R at
-   64 px, IG and the battery on the card against the same code on the CPU
-   (where every kernel wrapper runs its plain version);
-6. time one warm IG-50 attribution and one warm battery of R101.
+   64 px on the card against the same code on the CPU (where every kernel
+   wrapper runs its plain version): IG and the battery, and LIME with
+   injected sample rows;
+6. time one warm IG-50 attribution, one warm battery and one warm LIME
+   attribution of R101, LIME split by stage with CUDA events.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -46,8 +49,15 @@ import time
 # published H100 SXM peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# one FP32 lane operation per lane and clock (the FLOP peak counts an FMA
+# as two): 128 lanes x 132 SMs x 1.98 GHz
+F32_LANE_OPS_PER_S = F32_FLOPS_PER_S / 2
 
 BLUR_TOL = 1e-5
+# TINY_R LIME, card vs CPU: float32 forwards in cuDNN and oneDNN sum in
+# other orders (~1e-6 relative in the probabilities); coefficients within
+# 1e-4 of the largest, the tolerance of tests/test_torch_lime.py
+LIME_COEF_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -58,7 +68,8 @@ def fail(msg: str) -> None:
 def device_ms(torch, fn, launches: int = 50, reps: int = 7) -> float:
     """Median device milliseconds per call of ``fn``.  A sleep kernel
     holds the stream while the host queues ``launches`` calls, so the
-    events time the device back to back, not the host's launch rate."""
+    events time the device back to back, not the host's launch rate (as
+    long as the calls' launches fit in the launch queue)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -84,8 +95,18 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper by name; each counts its launches."""
+    from xai_tpu_torch.kernels.blur import blur_planes
+    from xai_tpu_torch.kernels.quickshift import quickshift_parents
+    from xai_tpu_torch.kernels.reveal import reveal_chunk
+    return {"blur_planes": blur_planes, "reveal_chunk": reveal_chunk,
+            "quickshift_parents": quickshift_parents}
+
+
 def check_kernels(torch, dev, x_hwc):
-    """Phase 3: every kernel against its plain version, then timings."""
+    """Phase 3, blur and reveal: each against its plain version, then
+    timings."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -173,28 +194,119 @@ def check_kernels(torch, dev, x_hwc):
     return rows
 
 
-def run_main_path(torch, dev, out_dir):
-    """Phase 4: the flagship driver on R101, counters zeroed around it."""
-    from xai_tpu_torch.kernels.blur import blur_planes
-    from xai_tpu_torch.kernels.reveal import reveal_chunk
+def _window_span(n: int, r: int) -> int:
+    """Sum over the n positions of an axis of the offsets in [-r, r] that
+    stay on the axis."""
+    return sum(min(i, r) + min(n - 1 - i, r) + 1 for i in range(n))
+
+
+def quickshift_bound_ms(b: int, h: int, w_img: int, w: int, wd: int):
+    """(bound ms, lane operations) of quickshift on a [b, h, w_img]
+    batch: each in-image (pixel, window offset) pair costs ~12 FP32 lane
+    operations in the density phase (3 sub, 3 mul, 3 add, the scale, the
+    accumulate and the exp's range reduction) and ~14 in the parent phase
+    (the distance, 3 compares, 2 selects); bytes are the LAB planes read
+    and the parents written."""
+    dens_pairs = b * _window_span(h, w) * _window_span(w_img, w)
+    parent_pairs = b * (_window_span(h, wd) * _window_span(w_img, wd)
+                        - h * w_img)
+    ops = 12 * dens_pairs + 14 * parent_pairs
+    nbytes = b * 4 * h * w_img * 4
+    return max(ops / F32_LANE_OPS_PER_S,
+               nbytes / HBM_BYTES_PER_S) * 1e3, ops
+
+
+def check_quickshift(torch, dev):
+    """Phase 3, quickshift: parents bit-exact against the plain version
+    (densities' max |delta| printed), then timings."""
+    import numpy as np
+
+    from xai_tpu_torch.kernels import quickshift as kq
+    from xai_tpu_torch.ops import quickshift as oq
+
+    w, wd, inv2s2, max_d2 = oq.quickshift_params(4.0, 200.0)   # LIME's
+    rs = np.random.RandomState(3)
+
+    def gradient(h, w_img):
+        yy, xx = np.mgrid[0:h, 0:w_img]
+        img = np.stack([yy / h, xx / w_img, yy * xx / (h * w_img)], -1)
+        return np.clip(img + 0.05 * rs.rand(h, w_img, 3), 0, 1)
+
+    cases = [
+        ("4x224x224: 2 noise, 2 gradient + jitter",
+         np.stack([rs.rand(224, 224, 3), rs.rand(224, 224, 3),
+                   gradient(224, 224), gradient(224, 224)]), w, wd),
+        ("1x200x131 noise", rs.rand(1, 200, 131, 3), w, wd),
+        ("2x64x80 noise, w=6 wd=4", rs.rand(2, 64, 80, 3), 6, 4),
+    ]
+    dens_err = 0.0
+    for label, x, cw, cwd in cases:
+        rgbs = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        lab = oq.lab_planes(rgbs, 0.2)
+        got, got_d = kq.parents_density(lab, cw, cwd, inv2s2, max_d2)
+        want, want_d = oq.parents_density_plain(lab, cw, cwd, inv2s2,
+                                                max_d2)
+        wrapper = kq.quickshift_parents(rgbs, inv2s2, max_d2, 0.2, w=cw,
+                                        wd=cwd)
+        torch.cuda.synchronize()
+        err = float((got_d - want_d).abs().max())
+        dens_err = max(dens_err, err)
+        if not (torch.equal(got, want) and torch.equal(wrapper, want)):
+            fail(f"quickshift kernel parents differ from the plain "
+                 f"version on {label}: "
+                 f"{int((got != want).sum())} pixels")
+        print(f"quickshift_parents {label}: parents bit-exact, density "
+              f"max |kernel - plain| = {err:.3g}")
+
+    lab1 = oq.lab_planes(torch.as_tensor(cases[0][1][:1], dtype=torch.float32,
+                                         device=dev), 0.2)
+    lab4 = oq.lab_planes(torch.as_tensor(cases[0][1], dtype=torch.float32,
+                                         device=dev), 0.2)
+    ms4 = device_ms(torch, lambda: kq.parents_density(
+        lab4, w, wd, inv2s2, max_d2))
+    bound_ms, ops = quickshift_bound_ms(1, 224, 224, w, wd)
+    row = dict(
+        name="quickshift_parents", route="cuda",
+        source="xai_tpu_torch/csrc/quickshift.cu",
+        replaces="xai_tpu/kernels/quickshift_pallas.py:119",
+        max_abs_err=0.0, density_max_abs_err=dens_err,
+        ms=device_ms(torch, lambda: kq.parents_density(
+            lab1, w, wd, inv2s2, max_d2)),
+        ms_b4=ms4,
+        # ~18 k small launches per call overflow the launch queue, so
+        # this is the host's launch rate, not device time
+        plain_ms=device_ms(torch, lambda: oq.parents_density_plain(
+            lab1, w, wd, inv2s2, max_d2), launches=2, reps=3),
+        library_ms=None,          # no PyTorch call computes quickshift
+        bound_ms=bound_ms, bound_by="operations", lane_ops=ops,
+        bound_ms_b4=quickshift_bound_ms(4, 224, 224, w, wd)[0])
+    print(f"quickshift_parents: {ops / 1e6:.1f} M FP32 lane operations per "
+          f"224 px image over {F32_LANE_OPS_PER_S / 1e12:.1f} T/s; kernel "
+          f"B=1 {row['ms'] * 1e3:.2f} us, B=4 {ms4 * 1e3:.2f} us")
+    return row
+
+
+def run_main_path(torch, dev, out_dir, attr_func):
+    """Phase 4: the flagship driver on R101 with ``attr_func``, counters
+    zeroed just before and read just after."""
     from xai_tpu_torch.runners import evaluate_perturbation as ep
 
     n_images = 2
     args = ep.build_parser().parse_args(
-        ["--model", "R101", "--attr_func", "ig", "--synthetic",
+        ["--model", "R101", "--attr_func", attr_func, "--synthetic",
          str(n_images), "--image_count", str(n_images), "--output_dir",
          out_dir, "--verbose"])
     torch.cuda.reset_peak_memory_stats(dev)
     log = io.StringIO()
-    blur_planes.launches = 0
-    reveal_chunk.launches = 0
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         ep.evaluate_perturbation(args, device=dev)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {"blur_planes": blur_planes.launches,
-                "reveal_chunk": reveal_chunk.launches}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     print(log.getvalue(), end="")
     # --verbose prints one line per scored image.  The class quota
@@ -202,30 +314,38 @@ def run_main_path(torch, dev, out_dir):
     # image: two noise images usually get the same top-1 class.
     scored = sum(line.startswith("[") for line in log.getvalue().splitlines())
     if scored < 1:
-        fail("the main path scored no image")
+        fail(f"the {attr_func} main path scored no image")
 
-    with open(os.path.join(out_dir, "R101", f"ig_{n_images}_images.csv")) as f:
+    with open(os.path.join(out_dir, "R101",
+                           f"{attr_func}_{n_images}_images.csv")) as f:
         rows = {r[0]: float(r[1]) for r in csv.reader(f) if r}
     scores = {k: v for k, v in rows.items()
               if k not in ("Attr Avg Runtime", "Total Runtime")}
-    print("main path scores:", json.dumps(scores))
+    print(f"{attr_func} main path scores:", json.dumps(scores))
     if len(scores) != 10 or not all(math.isfinite(v) for v in
                                     scores.values()):
         fail(f"expected 10 finite scores, got {scores}")
     # per scored image: one blur (the battery's substrate; the synthetic
     # stream skips the gates) and 3 passes of ceil(225 / 45) = 5 reveal
-    # chunks: 224 steps of 224 pixels, plus step 0
+    # chunks: 224 steps of 224 pixels, plus step 0; LIME segments its
+    # image once (lime_batch with B=1)
     per_pass = math.ceil((224 * 224 // 224 + 1) / 45)
     if launches["blur_planes"] < scored:
         fail(f"blur kernel launched {launches['blur_planes']} times on the "
-             f"main path, expected >= {scored}")
+             f"{attr_func} main path, expected >= {scored}")
     if launches["reveal_chunk"] != 3 * per_pass * scored:
         fail(f"reveal kernel launched {launches['reveal_chunk']} times on "
-             f"the main path, expected {3 * per_pass * scored}")
-    print(f"main path: {scored} of {n_images} images scored, total "
-          f"{total:.3f} s, attribution {rows['Attr Avg Runtime']:.3f} "
-          f"s/image (driver CSV, first image cold), peak memory "
-          f"{peak / 2**30:.2f} GiB, launches {json.dumps(launches)}")
+             f"the {attr_func} main path, expected {3 * per_pass * scored}")
+    want_qs = scored if attr_func == "lime" else 0
+    if launches["quickshift_parents"] != want_qs:
+        fail(f"quickshift kernel launched "
+             f"{launches['quickshift_parents']} times on the {attr_func} "
+             f"main path, expected {want_qs}")
+    print(f"{attr_func} main path: {scored} of {n_images} images scored, "
+          f"total {total:.3f} s, attribution "
+          f"{rows['Attr Avg Runtime']:.3f} s/image (driver CSV, first image "
+          f"cold), peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{json.dumps(launches)}")
     return launches
 
 
@@ -233,12 +353,19 @@ def check_small_reference(torch, dev):
     """Phase 5: TINY_R on the card against the same code on the CPU."""
     import numpy as np
 
+    from xai_tpu_torch.methods import lime as tl
     from xai_tpu_torch.metrics.curves import run_battery
     from xai_tpu_torch.registry import AttrContext, get_attribution
     from xai_tpu_torch.runners.common import (build_bundle, default_blur,
                                               normalize_input)
 
     img = np.random.RandomState(5).rand(64, 64, 3).astype(np.float32)
+    # LIME sample rows: random bits over the image's segments (as the CPU
+    # finds them), row 0 all-on; both devices get the same rows
+    _, count = tl.lime_segments(img, device="cpu")
+    rows = np.random.RandomState(9).randint(0, 2, (200, count)).astype(
+        np.int8)
+    rows[0] = 1
     results = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         bundle = build_bundle("TINY_R", seed=1, device=d)
@@ -246,9 +373,13 @@ def check_small_reference(torch, dev):
         target = int(bundle.apply(x.permute(2, 0, 1)[None]).argmax())
         sal = get_attribution("cnn", "ig", AttrContext(
             bundle=bundle, x=x, trans_img=img, target=target, img_hw=64))
-        results[name] = (target, sal, bundle, x)
-    (t_gpu, s_gpu, b_gpu, x_gpu), (t_cpu, s_cpu, b_cpu, x_cpu) = (
-        results["cuda"], results["cpu"])
+        lime = tl.lime_batch(bundle, img[None], None, chunk=50,
+                             rows=rows[None], return_coef=True, device=d)
+        labels = tl.lime_segments(img, device=d)[0]
+        results[name] = (target, sal, bundle, x, lime, labels)
+    (t_gpu, s_gpu, b_gpu, x_gpu, l_gpu, lab_gpu), \
+        (t_cpu, s_cpu, b_cpu, x_cpu, l_cpu, lab_cpu) = (
+            results["cuda"], results["cpu"])
     if t_gpu != t_cpu:
         fail(f"TINY_R argmax differs: cuda {t_gpu}, cpu {t_cpu}")
     sal_err = float(np.abs(s_gpu - s_cpu).max() / np.abs(s_cpu).max())
@@ -266,11 +397,26 @@ def check_small_reference(torch, dev):
     print(f"TINY_R 64 px, card vs CPU: IG saliency rel err {sal_err:.3g} "
           f"(< 1e-4), battery max |score delta| {worst:.3g} (< 2e-3)")
 
+    (m_gpu, c_gpu), (m_cpu, c_cpu) = l_gpu, l_cpu
+    if not np.array_equal(lab_gpu, lab_cpu):
+        fail("LIME segments on the card (quickshift kernel) differ from "
+             "the CPU's (plain version)")
+    coef_err = float(np.abs(c_gpu - c_cpu).max() / np.abs(c_cpu).max())
+    if not np.array_equal(m_gpu, m_cpu) or not coef_err < LIME_COEF_TOL:
+        fail(f"LIME on the card differs from the CPU: masks equal "
+             f"{np.array_equal(m_gpu, m_cpu)}, coef rel err {coef_err}")
+    print(f"TINY_R 64 px LIME (200 injected rows, {int(lab_cpu.max()) + 1} "
+          f"segments), card vs CPU: segments and mask equal "
+          f"({int(m_cpu.sum())} pixels on), coef rel err {coef_err:.3g} "
+          f"(< {LIME_COEF_TOL})")
 
-def time_warm_image(torch, dev):
-    """Phase 6: one warm IG-50 and one warm battery of R101, seconds."""
+
+def time_warm_image(torch, dev, card):
+    """Phase 6: one warm IG-50, one warm battery and one warm LIME of
+    R101; LIME split into its stages with CUDA events."""
     import numpy as np
 
+    from xai_tpu_torch.methods import lime as tl
     from xai_tpu_torch.metrics.curves import run_battery
     from xai_tpu_torch.registry import AttrContext, get_attribution
     from xai_tpu_torch.runners.common import (build_bundle, default_blur,
@@ -294,6 +440,35 @@ def time_warm_image(torch, dev):
     print(f"R101 warm: IG-50 attribution {times['attr'][-1]:.4f} s/image, "
           f"battery {times['battery'][-1]:.4f} s/image "
           f"(cold: {times['attr'][0]:.4f}, {times['battery'][0]:.4f})")
+
+    # LIME as lime() runs it: B=1, 1000 samples, chunk 100, stage by stage
+    imgs = torch.as_tensor(img, device=dev)[None]
+    stages = ("segment", "sample rows", "sweep", "ridge + selection")
+    for rnd in range(2):                     # the first round warms up
+        gen = torch.Generator(dev).manual_seed(rnd)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        labels, counts = tl.segment(imgs)
+        ev[1].record()
+        rows = tl.sample_rows([gen], counts, 1000)
+        ev[2].record()
+        probs = tl.sweep(bundle, imgs, labels, rows, 100)
+        ev[3].record()
+        mask, _ = tl.ridge_select(rows, probs, labels, counts, 5, 0.25)
+        ev[4].record()
+        mask = mask.cpu()
+        wall = time.perf_counter() - t0
+    split = {s: ev[i].elapsed_time(ev[i + 1]) / 1e3
+             for i, s in enumerate(stages)}
+    if not (mask.sum() > 0 and int(counts[0]) > 1):
+        fail(f"warm R101 LIME: {int(counts[0])} segments, "
+             f"{int(mask.sum())} mask pixels")
+    print(f"R101 warm LIME-1000: {wall:.4f} s/image wall "
+          f"({int(counts[0])} segments); by stage (CUDA events): "
+          + ", ".join(f"{s} {v:.4f} s" for s, v in split.items())
+          + f" on {card}")
 
 
 def main() -> None:
@@ -332,18 +507,24 @@ def main() -> None:
     x_hwc = normalize(torch.as_tensor(img, dtype=torch.float32, device=dev),
                       IMAGENET_MEAN, IMAGENET_STD)
     rows = check_kernels(torch, dev, x_hwc)
+    rows.append(check_quickshift(torch, dev))
 
+    by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
-        launches = run_main_path(torch, dev, out_dir)
+        for attr_func in ("ig", "lime"):
+            by_path[attr_func] = run_main_path(torch, dev, out_dir,
+                                               attr_func)
     check_small_reference(torch, dev)
-    time_warm_image(torch, dev)
+    time_warm_image(torch, dev, card)
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["kernel_ms"] = row["ms"]
-        print(f"{row['name']}: kernel {row['ms'] * 1e3:.2f} us, plain "
-              f"{row['plain_ms'] * 1e3:.2f} us, library "
-              f"{row['library_ms'] * 1e3:.2f} us, bound "
+        name = row["name"]
+        row["launches"] = sum(p[name] for p in by_path.values())
+        row["launches_by_path"] = {a: p[name] for a, p in by_path.items()}
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms'] * 1e3:.2f} us")
+        print(f"{name}: kernel {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}) on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@ xai_tpu's on the same .npz weights and the same images, on the CPU.
 
 Two streams: ``--synthetic 3`` (gates skipped, as in xai_tpu) and a
 directory of seeded JPEGs, where the blur/black gates run and so the blur
-inside them.  The CSV rows must match, runtime rows excluded.
+inside them.  The CSV rows must match, runtime rows excluded.  The LIME
+case injects the same sample rows into both registries' entries.
 """
 import csv
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from xai_tpu.runners import evaluate_perturbation as JD
 from xai_tpu.runners.common import build_bundle as jax_build_bundle
@@ -73,6 +75,54 @@ def test_driver_csv_matches_xai_tpu(tmp_path, params_path, source):
         # ranks of two float32 IG sweeps may swap near-equal pixels
         assert abs(float(g) - float(r)) < 2e-3, (key, g, r)
         assert np.isfinite(float(g))
+
+
+def test_driver_lime_csv_matches_xai_tpu(tmp_path, params_path,
+                                         monkeypatch):
+    """--attr_func lime: both registries' entries get the same injected
+    sample rows (threefry and torch's generator never draw alike)."""
+    from xai_tpu import registry as jax_registry
+    from xai_tpu.methods.lime import lime as jax_lime
+    from xai_tpu_torch import registry as torch_registry
+    from xai_tpu_torch.methods.lime import lime as torch_lime
+
+    rs = np.random.RandomState(11)
+    # 130 rows in chunks of 40: the last chunk is zero-padded in both
+    rows = rs.randint(0, 2, (130, 16)).astype(np.int8)
+    rows[0] = 1
+    monkeypatch.setattr(jax_registry, "_lime_entry", lambda c: jax_lime(
+        c.bundle, c.trans_img, c.key, chunk=40, rows=rows))
+    monkeypatch.setattr(torch_registry, "_lime_entry", lambda c: torch_lime(
+        c.bundle, c.trans_img, c.generator, chunk=40, rows=rows,
+        device=c.x.device))
+    count = 2
+    common = ["--model", "TINY_R", "--attr_func", "lime", "--image_count",
+              str(count), "--params_path", params_path, "--synthetic",
+              str(count)]
+    JD.evaluate_perturbation(JD.build_parser().parse_args(
+        common + ["--output_dir", str(tmp_path / "jax")]))
+    TD.evaluate_perturbation(TD.build_parser().parse_args(
+        common + ["--output_dir", str(tmp_path / "torch")]), device="cpu")
+    name = os.path.join("TINY_R", f"lime_{count}_images.csv")
+    ref = _read_csv(tmp_path / "jax" / name)
+    got = _read_csv(tmp_path / "torch" / name)
+    assert [r[0] for r in got] == [r[0] for r in ref]
+    scores = [(g, r) for g, r in zip(got, ref) if r[0] not in RUNTIME_ROWS]
+    assert len(scores) == 10
+    for (key, g), (_, r) in scores:
+        # equal masks give equal reveal orders; what is left is the
+        # battery's float32 forwards in two libraries
+        assert abs(float(g) - float(r)) < 2e-3, (key, g, r)
+        assert np.isfinite(float(g))
+
+
+def test_image_generators_are_seeded_per_image():
+    draw = [torch.randint(0, 2 ** 30, (4,), generator=TD.image_generator(
+        seed, index, "cpu")) for seed, index in ((0, 5), (0, 5), (0, 6),
+                                                 (1, 5))]
+    assert torch.equal(draw[0], draw[1])
+    assert not torch.equal(draw[0], draw[2])
+    assert not torch.equal(draw[0], draw[3])
 
 
 @pytest.mark.parametrize("flag", [

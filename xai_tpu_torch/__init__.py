@@ -5,8 +5,10 @@ Module names mirror ``xai_tpu`` so each piece has an obvious counterpart:
 - ``models``   — ResNet family as ``nn.Module``s with stage taps (NCHW inside)
 - ``convert``  — the weight carry from ``xai_tpu``'s saved ``.npz`` params
 - ``methods``  — gradient-path attributions (grad, input×grad, IG, LIG)
+  and LIME
 - ``metrics``  — the 10-score perturbation battery (ranked-reveal curves)
-- ``ops``      — preprocessing, the blur substrate, curve statistics
+- ``ops``      — preprocessing, the blur substrate, quickshift
+  superpixels, curve statistics
 - ``kernels``  — hand-written CUDA kernels for ``sm_90a`` (built at first
   use with ``nvcc``) and their plain PyTorch versions
 - ``data``     — ImageNet-val stream and class maps

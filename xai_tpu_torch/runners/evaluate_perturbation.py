@@ -6,13 +6,19 @@ XAI_Survey/evaluations/evaluatePerturbation.py).  ``--cuda_num N`` selects
 ``cuda:N``; ``--synthetic N`` substitutes a deterministic random image
 stream when no ImageNet directory is available.
 
+Each image gets its own ``torch.Generator`` on the model's device, seeded
+from ``(--seed, image index)``: the counterpart of xai_tpu's
+``fold_in(PRNGKey(seed), index)``.  Its draws (LIME's sample rows)
+differ from JAX's threefry draws by construction; the parity tests inject
+the same rows into both packages.
+
 Per-image flow (reference :520-599): sorted val stream -> correctly-
 classified filter -> sanity gates (blur/black predictions) -> class-balance
 quota -> attribution via the registry -> run_battery (3 reveal passes fed
 by the reveal kernel) -> accumulate -> CSV.
 
 Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
---attr_func ig --synthetic 2 --image_count 2``.
+--attr_func ig --synthetic 2 --image_count 2`` (or ``--attr_func lime``).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ..data.classmaps import load_correct_mask
 from ..data.imagenet import ImageNetValStream
@@ -44,6 +51,14 @@ def _reject_unported(args) -> None:
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md item {item})")
+
+
+def image_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of image ``index``, deterministic in ``(seed,
+    index)``."""
+    state = np.random.SeedSequence([seed, index]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(state))
 
 
 def evaluate_perturbation(args, device=None) -> dict:
@@ -85,8 +100,10 @@ def evaluate_perturbation(args, device=None) -> dict:
             continue
         classes_used[target] += 1
 
-        ctx = AttrContext(bundle=bundle, x=x, trans_img=item.trans_img,
-                          target=target, img_hw=bundle.meta.img_hw)
+        ctx = AttrContext(
+            bundle=bundle, x=x, trans_img=item.trans_img, target=target,
+            img_hw=bundle.meta.img_hw,
+            generator=image_generator(args.seed, item.index, device))
         t = time.time()
         # returns host numpy, so the device work is done when it returns
         saliency = get_attribution(family, args.attr_func, ctx)

@@ -1,10 +1,11 @@
-"""Where one image's time goes on the card: the flagship path (IG-50
-attribution, then the 10-score battery) for one warm image, traced with
-``torch.profiler``.
+"""Where one image's time goes on the card: one warm image of the
+flagship path (the attribution, IG-50 or LIME with 1000 samples, then the
+10-score battery), traced with ``torch.profiler``.
 
 Run on a machine with a GPU:
 
-    python -m xai_tpu_torch.runners.profile_main_path [--model R101]
+    python -m xai_tpu_torch.runners.profile_main_path [--model R101] \
+        [--attr_func {ig,lime}]
 
 Prints the card, the wall seconds of the traced image, the share of that
 wall time in which some kernel ran on the device, and the kernels by
@@ -24,6 +25,7 @@ from torch.autograd import DeviceType
 from ..metrics.curves import run_battery
 from ..registry import AttrContext, get_attribution
 from .common import build_bundle, default_blur, normalize_input
+from .evaluate_perturbation import image_generator
 
 
 def _busy_us(intervals) -> float:
@@ -41,17 +43,18 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_image(model: str, device, top: int = 12) -> dict:
+def profile_image(model: str, device, attr_func: str = "ig",
+                  top: int = 12) -> dict:
     bundle = build_bundle(model, device=device)
     hw = bundle.meta.img_hw
     img = np.random.RandomState(0).rand(hw, hw, 3).astype(np.float32)
     x = normalize_input(img, "cnn", device)
-    ctx = AttrContext(bundle=bundle, x=x, trans_img=img, target=1,
-                      img_hw=hw)
     blur = default_blur()
 
     def one_image():
-        sal = get_attribution("cnn", "ig", ctx)
+        ctx = AttrContext(bundle=bundle, x=x, trans_img=img, target=1,
+                          img_hw=hw, generator=image_generator(0, 0, device))
+        sal = get_attribution("cnn", attr_func, ctx)
         run_battery(bundle.apply, x, sal, blur, chunk=45, target=1)
         torch.cuda.synchronize(device)
 
@@ -83,15 +86,18 @@ def profile_image(model: str, device, top: int = 12) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser("profile_main_path")
     p.add_argument("--model", default="R101")
+    p.add_argument("--attr_func", default="ig", choices=["ig", "lime"])
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    r = profile_image(args.model, torch.device("cuda"), args.top)
+    r = profile_image(args.model, torch.device("cuda"), args.attr_func,
+                      args.top)
+    what = {"ig": "IG-50", "lime": "LIME-1000"}[args.attr_func]
     print(f"card: {card}")
-    print(f"{args.model}, one warm image (IG-50 + battery): wall "
+    print(f"{args.model}, one warm image ({what} + battery): wall "
           f"{r['wall_s']:.4f} s, device busy {r['device_busy_us'] / 1e6:.4f}"
           f" s ({100 * r['device_busy_us'] / 1e6 / r['wall_s']:.1f}% of "
           f"wall), kernel time summed {r['kernel_us_total'] / 1e6:.4f} s")
