@@ -12,9 +12,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off for cuDNN and cuBLAS);
 2. build every kernel in xai_tpu_torch/csrc with nvcc, all at once;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes and at ragged ones (blur: max |delta| < 1e-5;
-   reveal and quickshift parents: bit-exact), and time kernel, plain
-   version and, where one exists, one library call with CUDA events;
+   main paths' shapes and at ragged ones, heights and widths that are not
+   multiples of the kernels' tiles among them (blur: max |delta| < 1e-5;
+   reveal and quickshift parents: bit-exact, quickshift densities max
+   |delta| 0), and time kernel, plain version and, where one exists, one
+   library call with CUDA events, beside the card's per-launch floor (an
+   empty torch.cuda._sleep(0)) and each kernel's bound
+   (xai_tpu_torch/kernels/bounds.py); time the quickshift kernel's tile
+   alternatives (rows a thread, warps a block), each rebuilt from the
+   same source and held bit-exact first, and its two phases with
+   torch.profiler;
 4. drive both main paths through their entry point,
    evaluate_perturbation --model R101 --synthetic 2 at 224 px with seeded
    random weights, first --attr_func ig, then --attr_func lime, launch
@@ -46,18 +53,14 @@ import sys
 import tempfile
 import time
 
-# published H100 SXM peaks (NVIDIA data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-# one FP32 lane operation per lane and clock (the FLOP peak counts an FMA
-# as two): 128 lanes x 132 SMs x 1.98 GHz
-F32_LANE_OPS_PER_S = F32_FLOPS_PER_S / 2
-
 BLUR_TOL = 1e-5
 # TINY_R LIME, card vs CPU: float32 forwards in cuDNN and oneDNN sum in
 # other orders (~1e-6 relative in the probabilities); coefficients within
 # 1e-4 of the largest, the tolerance of tests/test_torch_lime.py
 LIME_COEF_TOL = 1e-4
+# quickshift tile alternatives timed against the source's own constants:
+# (QS_ROWS, QS_WARPS), pixels a thread and warps a block
+QS_TILES = ((1, 4), (1, 8), (2, 4), (2, 8), (4, 4))
 
 
 def fail(msg: str) -> None:
@@ -87,6 +90,27 @@ def device_ms(torch, fn, launches: int = 50, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def phase_us(torch, fn, calls: int = 100) -> dict:
+    """Device microseconds per call of ``fn``'s kernels, summed by phase
+    (a kernel whose name holds "density" or "parent"), with
+    torch.profiler over ``calls`` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"density": 0.0, "parent": 0.0}
+    for e in prof.key_averages():
+        for phase in out:
+            if phase in e.key:
+                out[phase] += e.device_time_total / calls
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -112,30 +136,40 @@ def check_kernels(torch, dev, x_hwc):
 
     from xai_tpu_torch.kernels import blur as kblur
     from xai_tpu_torch.kernels import reveal as kreveal
+    from xai_tpu_torch.kernels.bounds import blur_bound_ms, reveal_bound_ms
     from xai_tpu_torch.metrics.curves import pixel_flip_steps
     from xai_tpu_torch.ops.blur import gkern
 
     rows = []
-    # --- blur: [3, 224, 224] (the main path) and a ragged 200 x 131 ---
+    # --- blur: [3, 224, 224] (the main path), [12, 224, 224] (four images
+    # at once), and ragged planes whose heights and widths are not
+    # multiples of the kernel's 32 x 40 tile; klen 11 runs another
+    # instantiation ---
     planes = x_hwc.permute(2, 0, 1).contiguous()
-    ragged = torch.randn(3, 200, 131, device=dev,
-                         generator=torch.Generator(dev).manual_seed(1))
+    gen = torch.Generator(dev).manual_seed(1)
+    planes12 = torch.randn(12, 224, 224, device=dev, generator=gen)
+    cases = [(planes, 31, 31.0), (planes12, 31, 31.0),
+             (torch.randn(3, 200, 131, device=dev, generator=gen), 31, 31.0),
+             (torch.randn(2, 203, 97, device=dev, generator=gen), 31, 31.0),
+             (torch.randn(1, 57, 45, device=dev, generator=gen), 11, 5.0)]
     err = 0.0
-    for t in (planes, ragged):
-        got = kblur.blur_planes(t)
-        want = kblur.blur_planes_plain(t)
+    for t, klen, nsig in cases:
+        got = kblur.blur_planes(t, klen, nsig)
+        want = kblur.blur_planes_plain(t, klen, nsig)
         torch.cuda.synchronize()
         err = max(err, float((got - want).abs().max()))
         if not bool(torch.isfinite(got).all()):
             fail("blur kernel produced non-finite values")
     print(f"blur_planes: max |kernel - plain| = {err:.3g} "
-          f"(tolerance {BLUR_TOL})")
+          f"(tolerance {BLUR_TOL}) over "
+          + ", ".join(f"{list(t.shape)} klen {k}" for t, k, _ in cases))
     if not err < BLUR_TOL:
         fail(f"blur kernel disagrees with its plain version: {err}")
     weight = torch.as_tensor(gkern(31, 31.0), device=dev).expand(
         3, 1, 31, 31).contiguous()
     n, h, w = planes.shape
-    klen = 31
+    bound_ms, bound_by = blur_bound_ms(n, h, w, 31)
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     rows.append(dict(
         name="blur_planes", route="cuda",
         source="xai_tpu_torch/csrc/blur.cu",
@@ -145,11 +179,12 @@ def check_kernels(torch, dev, x_hwc):
         plain_ms=device_ms(torch, lambda: kblur.blur_planes_plain(planes)),
         library_ms=device_ms(torch, lambda: F.conv2d(
             planes[None], weight, padding=15, groups=3)),
-        # one read and one write of the planes, 2 passes x klen FMAs/px
-        bound_ms=max(2 * n * h * w * 4 / HBM_BYTES_PER_S,
-                     n * h * w * 2 * klen * 2 / F32_FLOPS_PER_S) * 1e3,
-        bound_by="bytes" if 2 * n * h * w * 4 / HBM_BYTES_PER_S
-        >= n * h * w * 2 * klen * 2 / F32_FLOPS_PER_S else "operations"))
+        bound_ms=bound_ms, bound_by=bound_by,
+        ms_n12=device_ms(torch, lambda: kblur.blur_planes(planes12)),
+        bound_ms_n12=blur_bound_ms(12, h, w, 31)[0],
+        launch_floor_ms=floor_ms))
+    print(f"per-launch floor (torch.cuda._sleep(0)): {floor_ms * 1e3:.2f} "
+          f"us; blur [12, 224, 224]: {rows[-1]['ms_n12'] * 1e3:.2f} us")
 
     # --- reveal: S=45 at 224 px (the main path), ragged S=1, and a plane
     # size that is not a multiple of 4 (the scalar variant) ---
@@ -176,8 +211,6 @@ def check_kernels(torch, dev, x_hwc):
     print("reveal_chunk: bit-exact against the plain version "
           "(S=45 and S=1 at 224 px, 3x15x13)")
     s, (c, h, w) = steps45.shape[0], planes.shape
-    # each input read once, the [S, C, H, W] batch written once
-    rbytes = (s * c * h * w + 2 * c * h * w) * 4 + (h * w + s) * 4
     rows.append(dict(
         name="reveal_chunk", route="cuda",
         source="xai_tpu_torch/csrc/reveal.cu",
@@ -190,38 +223,19 @@ def check_kernels(torch, dev, x_hwc):
         library_ms=device_ms(torch, lambda: torch.where(
             flip[None, None] <= steps45[:, None, None, None], finish,
             planes)),
-        bound_ms=rbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"))
+        bound_ms=reveal_bound_ms(s, c, h, w), bound_by="bytes"))
     return rows
 
 
-def _window_span(n: int, r: int) -> int:
-    """Sum over the n positions of an axis of the offsets in [-r, r] that
-    stay on the axis."""
-    return sum(min(i, r) + min(n - 1 - i, r) + 1 for i in range(n))
-
-
-def quickshift_bound_ms(b: int, h: int, w_img: int, w: int, wd: int):
-    """(bound ms, lane operations) of quickshift on a [b, h, w_img]
-    batch: each in-image (pixel, window offset) pair costs ~12 FP32 lane
-    operations in the density phase (3 sub, 3 mul, 3 add, the scale, the
-    accumulate and the exp's range reduction) and ~14 in the parent phase
-    (the distance, 3 compares, 2 selects); bytes are the LAB planes read
-    and the parents written."""
-    dens_pairs = b * _window_span(h, w) * _window_span(w_img, w)
-    parent_pairs = b * (_window_span(h, wd) * _window_span(w_img, wd)
-                        - h * w_img)
-    ops = 12 * dens_pairs + 14 * parent_pairs
-    nbytes = b * 4 * h * w_img * 4
-    return max(ops / F32_LANE_OPS_PER_S,
-               nbytes / HBM_BYTES_PER_S) * 1e3, ops
-
-
 def check_quickshift(torch, dev):
-    """Phase 3, quickshift: parents bit-exact against the plain version
-    (densities' max |delta| printed), then timings."""
+    """Phase 3, quickshift: parents bit-exact and densities equal against
+    the plain version, then timings and the tile sweep."""
     import numpy as np
 
     from xai_tpu_torch.kernels import quickshift as kq
+    from xai_tpu_torch.kernels.bounds import (F32_LANE_OPS_PER_S,
+                                              quickshift_bound_ms,
+                                              quickshift_exp_ms)
     from xai_tpu_torch.ops import quickshift as oq
 
     w, wd, inv2s2, max_d2 = oq.quickshift_params(4.0, 200.0)   # LIME's
@@ -232,20 +246,32 @@ def check_quickshift(torch, dev):
         img = np.stack([yy / h, xx / w_img, yy * xx / (h * w_img)], -1)
         return np.clip(img + 0.05 * rs.rand(h, w_img, 3), 0, 1)
 
+    # heights 227 and 97 are not multiples of any tile height of the
+    # sweep, and widths 131 and 80 not of the tile width 32: ragged
+    # strips and ragged columns at the bottom and right edges
     cases = [
         ("4x224x224: 2 noise, 2 gradient + jitter",
          np.stack([rs.rand(224, 224, 3), rs.rand(224, 224, 3),
                    gradient(224, 224), gradient(224, 224)]), w, wd),
         ("1x200x131 noise", rs.rand(1, 200, 131, 3), w, wd),
+        ("1x227x131 noise", rs.rand(1, 227, 131, 3), w, wd),
+        ("2x227x131 gradient + jitter",
+         np.stack([gradient(227, 131), gradient(227, 131)]), w, wd),
         ("2x64x80 noise, w=6 wd=4", rs.rand(2, 64, 80, 3), 6, 4),
+        ("2x97x80: noise, gradient + jitter, w=6 wd=4",
+         np.stack([rs.rand(97, 80, 3), gradient(97, 80)]), 6, 4),
+        ("1x61x75 gradient + jitter, w=18 wd=18 (MAX_W)",
+         gradient(61, 75)[None], kq.MAX_W, kq.MAX_W),
     ]
     dens_err = 0.0
+    labs = []
     for label, x, cw, cwd in cases:
         rgbs = torch.as_tensor(x, dtype=torch.float32, device=dev)
         lab = oq.lab_planes(rgbs, 0.2)
-        got, got_d = kq.parents_density(lab, cw, cwd, inv2s2, max_d2)
         want, want_d = oq.parents_density_plain(lab, cw, cwd, inv2s2,
                                                 max_d2)
+        labs.append((label, lab, cw, cwd, want, want_d))
+        got, got_d = kq.parents_density(lab, cw, cwd, inv2s2, max_d2)
         wrapper = kq.quickshift_parents(rgbs, inv2s2, max_d2, 0.2, w=cw,
                                         wd=cwd)
         torch.cuda.synchronize()
@@ -255,15 +281,15 @@ def check_quickshift(torch, dev):
             fail(f"quickshift kernel parents differ from the plain "
                  f"version on {label}: "
                  f"{int((got != want).sum())} pixels")
+        if err != 0.0:
+            fail(f"quickshift kernel densities differ from the plain "
+                 f"version on {label}: max |delta| {err}")
         print(f"quickshift_parents {label}: parents bit-exact, density "
               f"max |kernel - plain| = {err:.3g}")
 
     lab1 = oq.lab_planes(torch.as_tensor(cases[0][1][:1], dtype=torch.float32,
                                          device=dev), 0.2)
-    lab4 = oq.lab_planes(torch.as_tensor(cases[0][1], dtype=torch.float32,
-                                         device=dev), 0.2)
-    ms4 = device_ms(torch, lambda: kq.parents_density(
-        lab4, w, wd, inv2s2, max_d2))
+    lab4 = labs[0][1]
     bound_ms, ops = quickshift_bound_ms(1, 224, 224, w, wd)
     row = dict(
         name="quickshift_parents", route="cuda",
@@ -272,18 +298,60 @@ def check_quickshift(torch, dev):
         max_abs_err=0.0, density_max_abs_err=dens_err,
         ms=device_ms(torch, lambda: kq.parents_density(
             lab1, w, wd, inv2s2, max_d2)),
-        ms_b4=ms4,
+        ms_b4=device_ms(torch, lambda: kq.parents_density(
+            lab4, w, wd, inv2s2, max_d2)),
         # ~18 k small launches per call overflow the launch queue, so
         # this is the host's launch rate, not device time
         plain_ms=device_ms(torch, lambda: oq.parents_density_plain(
             lab1, w, wd, inv2s2, max_d2), launches=2, reps=3),
         library_ms=None,          # no PyTorch call computes quickshift
         bound_ms=bound_ms, bound_by="operations", lane_ops=ops,
-        bound_ms_b4=quickshift_bound_ms(4, 224, 224, w, wd)[0])
+        bound_ms_b4=quickshift_bound_ms(4, 224, 224, w, wd)[0],
+        exp_ms=quickshift_exp_ms(1, 224, 224, w),
+        phases_us={f"B={lab.shape[0]}": phase_us(torch, lambda: (
+            kq.parents_density(lab, w, wd, inv2s2, max_d2)))
+            for lab in (lab1, lab4)},
+        tile_sweep=sweep_quickshift_tiles(torch, labs, lab1, lab4, w, wd,
+                                          inv2s2, max_d2))
     print(f"quickshift_parents: {ops / 1e6:.1f} M FP32 lane operations per "
-          f"224 px image over {F32_LANE_OPS_PER_S / 1e12:.1f} T/s; kernel "
-          f"B=1 {row['ms'] * 1e3:.2f} us, B=4 {ms4 * 1e3:.2f} us")
+          f"224 px image over {F32_LANE_OPS_PER_S / 1e12:.1f} T/s; exps "
+          f"alone {row['exp_ms'] * 1e3:.2f} us on the special-function "
+          f"units; kernel B=1 {row['ms'] * 1e3:.2f} us, B=4 "
+          f"{row['ms_b4'] * 1e3:.2f} us; by phase (profiler) "
+          + ", ".join(f"{b}: density {p['density']:.2f} us, parent "
+                      f"{p['parent']:.2f} us"
+                      for b, p in row["phases_us"].items()))
     return row
+
+
+def sweep_quickshift_tiles(torch, labs, lab1, lab4, w, wd, inv2s2, max_d2):
+    """The quickshift kernel rebuilt with each (QS_ROWS, QS_WARPS) of
+    QS_TILES: held bit-exact on every case of check_quickshift, then
+    timed at B=1 and B=4 beside the source's own constants (first row).
+    Counts no launch."""
+    from xai_tpu_torch.kernels import _build
+    from xai_tpu_torch.kernels import quickshift as kq
+
+    out = []
+    for tile in (None, *QS_TILES):
+        defines = () if tile is None else (f"QS_ROWS={tile[0]}",
+                                           f"QS_WARPS={tile[1]}")
+        lib = _build.load("quickshift", defines)
+        entry = (lib, kq.bind(lib))
+        for label, lab, cw, cwd, want, want_d in labs:
+            got, got_d = kq.run(lambda: entry, lab, cw, cwd, inv2s2, max_d2)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got_d, want_d)):
+                fail(f"quickshift tile {tile} differs from the plain "
+                     f"version on {label}")
+        times = [device_ms(torch, lambda: kq.run(
+            lambda: entry, lab, w, wd, inv2s2, max_d2)) for lab in (lab1,
+                                                                     lab4)]
+        name = "source" if tile is None else f"R={tile[0]} WARPS={tile[1]}"
+        out.append({"tile": name, "ms": times[0], "ms_b4": times[1]})
+        print(f"quickshift tile {name}: bit-exact on every case; B=1 "
+              f"{times[0] * 1e3:.2f} us, B=4 {times[1] * 1e3:.2f} us")
+    return out
 
 
 def run_main_path(torch, dev, out_dir, attr_func):
@@ -495,7 +563,9 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    report = _build.build()
+    report = _build.build([*_build.KERNELS, *(
+        ("quickshift", (f"QS_ROWS={r}", f"QS_WARPS={k}"))
+        for r, k in QS_TILES)])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for "
           f"{sorted(report) or 'nothing (already built)'}")
     for name, r in report.items():

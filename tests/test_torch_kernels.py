@@ -94,3 +94,24 @@ def test_reveal_plain_matches_jax(form, steps):
         torch.from_numpy(flip), torch.from_numpy(st)).numpy()
     assert got.dtype == np.float32 and got.shape == ref.shape
     assert np.array_equal(got, ref)                      # a select: exact
+
+
+def test_build_keeps_macro_variants_apart():
+    # chip_smoke.py rebuilds quickshift.cu with other tile macros; each
+    # variant gets a library of its own, and the wrappers' build none
+    from xai_tpu_torch.kernels import _build
+    plain = _build.lib_path("quickshift")
+    variant = _build.lib_path("quickshift", ("QS_ROWS=1", "QS_WARPS=4"))
+    assert plain != variant and plain.parent == variant.parent
+    assert _build.lib_path("quickshift", ()) == plain
+    assert _build.label("quickshift") == "quickshift"
+    assert (_build.label(("quickshift", ("QS_ROWS=1", "QS_WARPS=4")))
+            == "quickshift[QS_ROWS=1,QS_WARPS=4]")
+
+
+@pytest.mark.parametrize("klen,nsig", [(31, 31.0), (11, 5.0), (63, 20.0)])
+def test_blur_host_taps_are_what_the_kernel_reads(klen, nsig):
+    # the kernel copies klen float32 taps a pass from host memory
+    for taps in tblur._factors(klen, nsig):
+        assert taps.dtype == np.float32 and taps.shape == (klen,)
+        assert taps.flags["C_CONTIGUOUS"] and (taps > 0).all()

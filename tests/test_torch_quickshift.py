@@ -154,3 +154,15 @@ def test_kernel_wrapper_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="unsupported device"):
         kq.quickshift_parents(torch.zeros(1, 8, 8, 3, device="meta"),
                               INV2S2, MAX_D2, 0.2, w=W12, wd=W12)
+
+
+# windows outside 0 <= wd <= w <= MAX_W: refused before any device check,
+# and before a library is built or loaded
+@pytest.mark.parametrize("w,wd", [(0, 0), (kq.MAX_W + 1, 4), (6, 7),
+                                  (6, -1)])
+def test_kernel_wrapper_rejects_windows_it_does_not_take(w, wd):
+    built = []
+    with pytest.raises(ValueError, match="MAX_W|<= w"):
+        kq.run(lambda: built.append(1), torch.zeros(1, 3, 8, 8), w, wd,
+               INV2S2, MAX_D2)
+    assert not built

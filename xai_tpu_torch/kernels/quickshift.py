@@ -7,10 +7,22 @@ the XLA patches form ``_quickshift_device_b`` it stands beside.  The LAB
 conversion and the ``ratio`` scale stay in PyTorch
 (``ops/quickshift.py lab_planes``), outside the kernel, as they stay
 outside the ``pallas_call``.  The kernel (``csrc/quickshift.cu``) runs the
-density phase, then the parent phase, one thread per pixel over a
-shared-memory tile of the LAB planes with a ``w``-pixel halo.  It is
-bound by operations: ~0.8 G FP32 lane operations per 224 px image at
-w = 12, ~23 us on the H100; the source note gives the count.
+density phase, then the parent phase, over shared-memory tiles of the LAB
+planes with a ``w``-pixel halo of sentinels.
+
+It is bound by instruction issue: ~29.6 M (pixel, offset) pairs per phase
+at 224 px and w = 12, each with a fixed sequence of rounded float
+operations, because the parents must be bit-exact.  The first version
+(one thread per pixel, three or four shared loads a pair, a run-time
+window, 196 blocks for 132 SMs at one image) ran at 4.2x the bound that
+``kernels/bounds.py`` counts.  The kernel now keeps a pixel's LAB and
+density in one float4, blocks registers along y (a thread owns one or two
+pixels, one above another, and each neighbour it loads serves both),
+instantiates LIME's window (w = wd = 12) at compile time, and picks the
+larger of two tiles where its blocks spread evenly over the SMs.  It
+visits every pixel's window in row-major order, as the plain version sums
+it, so the densities are the same floats.  The source note gives the
+design, ``PERF.md`` the tile sweep.
 
 :func:`quickshift_parents` runs the plain version for CPU tensors; for
 CUDA tensors it launches the kernel or raises.  Its parents are
@@ -26,26 +38,34 @@ import torch
 from ..ops.quickshift import lab_planes, parents_plain
 from . import _build
 
-# the parent phase holds four (32 + 2w) x (8 + 2w) float tiles, which stay
-# under the 48 KB of shared memory a block gets without opting in up to 18
+# the largest window the kernel takes; its run-time instantiation serves
+# every window but LIME's, and a block's shared memory grows as (32 + 2w)^2
 MAX_W = 18
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry point of a quickshift library, its types declared."""
+    fn = lib.xai_quickshift_parents
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=1)
 def _entry():
     lib = _build.load("quickshift")
-    fn = lib.xai_quickshift_parents
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return lib, bind(lib)
 
 
-def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
-                    max_d2: float):
-    """Launch the kernel on LAB * ratio planes ``lab`` [B, 3, H, W] float32
-    on the card.  Returns (parents [B, H, W] int32, density [B, H, W]
-    float32)."""
+def run(entry, lab: torch.Tensor, w: int, wd: int, inv2s2: float,
+        max_d2: float):
+    """Check ``lab``, then launch on it the library that ``entry()``
+    returns as (library, :func:`bind` entry point); see
+    :func:`parents_density`.  Counts nothing."""
+    if not 1 <= w <= MAX_W or not 0 <= wd <= w:
+        raise ValueError(f"quickshift kernel: need 1 <= w <= {MAX_W} and "
+                         f"0 <= wd <= w, got w={w}, wd={wd}")
     if lab.device.type != "cuda":
         raise ValueError(f"quickshift kernel: needs a CUDA tensor, got "
                          f"{lab.device}")
@@ -54,9 +74,6 @@ def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
         raise ValueError("quickshift kernel: need contiguous float32 "
                          f"[B, 3, H, W] planes, got {lab.dtype} "
                          f"{tuple(lab.shape)}")
-    if not 1 <= w <= MAX_W or not 0 <= wd <= w:
-        raise ValueError(f"quickshift kernel: need 1 <= w <= {MAX_W} and "
-                         f"0 <= wd <= w, got w={w}, wd={wd}")
     b, _, h, wi = lab.shape
     if b > 65535 or lab.numel() >= 2 ** 31:
         raise ValueError(f"quickshift kernel: {tuple(lab.shape)} exceeds "
@@ -65,13 +82,23 @@ def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
     out = torch.empty((b, h, wi), dtype=torch.int32, device=lab.device)
     if out.numel() == 0:
         return out, dens
-    lib, fn = _entry()
+    lib, fn = entry()
     err = fn(lab.data_ptr(), dens.data_ptr(), out.data_ptr(), b, h, wi, w,
              wd, inv2s2, max_d2, lab.device.index,
              torch.cuda.current_stream(lab.device).cuda_stream)
     _build.check(lib, err, "quickshift_parents")
-    quickshift_parents.launches += 1
     return out, dens
+
+
+def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
+                    max_d2: float):
+    """Launch the kernel on LAB * ratio planes ``lab`` [B, 3, H, W] float32
+    on the card.  Returns (parents [B, H, W] int32, density [B, H, W]
+    float32)."""
+    out = run(_entry, lab, w, wd, inv2s2, max_d2)
+    if lab.numel():
+        quickshift_parents.launches += 1
+    return out
 
 
 def quickshift_parents(rgbs: torch.Tensor, inv2s2: float, max_d2: float,
