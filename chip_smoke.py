@@ -18,10 +18,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    |delta| 0), and time kernel, plain version and, where one exists, one
    library call with CUDA events, beside the card's per-launch floor (an
    empty torch.cuda._sleep(0)) and each kernel's bound
-   (xai_tpu_torch/kernels/bounds.py); time the quickshift kernel's tile
-   alternatives (rows a thread, warps a block), each rebuilt from the
-   same source and held bit-exact first, and its two phases with
-   torch.profiler;
+   (xai_tpu_torch/kernels/bounds.py); the quickshift cases cover both of
+   its tiles at ragged heights, and w=18 on both; time its two phases
+   with torch.profiler;
 4. drive both main paths through their entry point,
    evaluate_perturbation --model R101 --synthetic 2 at 224 px with seeded
    random weights, first --attr_func ig, then --attr_func lime, launch
@@ -58,9 +57,6 @@ BLUR_TOL = 1e-5
 # other orders (~1e-6 relative in the probabilities); coefficients within
 # 1e-4 of the largest, the tolerance of tests/test_torch_lime.py
 LIME_COEF_TOL = 1e-4
-# quickshift tile alternatives timed against the source's own constants:
-# (QS_ROWS, QS_WARPS), pixels a thread and warps a block
-QS_TILES = ((1, 4), (1, 8), (2, 4), (2, 8), (4, 4))
 
 
 def fail(msg: str) -> None:
@@ -227,9 +223,18 @@ def check_kernels(torch, dev, x_hwc):
     return rows
 
 
+def quickshift_tile_rows(b, h, w_img, sms):
+    """The height of the 32-wide output tile that csrc/quickshift.cu
+    launch_tile picks: 16 where that tile's blocks spread over the SMs
+    with the busiest at most 10/9 of the mean, else 4."""
+    blocks = -(-w_img // 32) * -(-h // 16) * b
+    busiest = -(-blocks // sms)
+    return 16 if blocks * 10 >= busiest * sms * 9 else 4
+
+
 def check_quickshift(torch, dev):
     """Phase 3, quickshift: parents bit-exact and densities equal against
-    the plain version, then timings and the tile sweep."""
+    the plain version, then timings."""
     import numpy as np
 
     from xai_tpu_torch.kernels import quickshift as kq
@@ -246,9 +251,10 @@ def check_quickshift(torch, dev):
         img = np.stack([yy / h, xx / w_img, yy * xx / (h * w_img)], -1)
         return np.clip(img + 0.05 * rs.rand(h, w_img, 3), 0, 1)
 
-    # heights 227 and 97 are not multiples of any tile height of the
-    # sweep, and widths 131 and 80 not of the tile width 32: ragged
-    # strips and ragged columns at the bottom and right edges
+    # heights 227, 97 and 61 are not multiples of the tile heights 4 and
+    # 16, nor widths 131, 80 and 75 of the tile width 32: ragged strips
+    # and columns at the bottom and right edges, on both tiles; w=18 on
+    # the 32x16 tile needs more than 48 KB of shared memory
     cases = [
         ("4x224x224: 2 noise, 2 gradient + jitter",
          np.stack([rs.rand(224, 224, 3), rs.rand(224, 224, 3),
@@ -257,20 +263,34 @@ def check_quickshift(torch, dev):
         ("1x227x131 noise", rs.rand(1, 227, 131, 3), w, wd),
         ("2x227x131 gradient + jitter",
          np.stack([gradient(227, 131), gradient(227, 131)]), w, wd),
+        ("8x227x131: 4 noise, 4 gradient + jitter",
+         np.stack([rs.rand(227, 131, 3) for _ in range(4)]
+                  + [gradient(227, 131) for _ in range(4)]), w, wd),
         ("2x64x80 noise, w=6 wd=4", rs.rand(2, 64, 80, 3), 6, 4),
         ("2x97x80: noise, gradient + jitter, w=6 wd=4",
          np.stack([rs.rand(97, 80, 3), gradient(97, 80)]), 6, 4),
         ("1x61x75 gradient + jitter, w=18 wd=18 (MAX_W)",
          gradient(61, 75)[None], kq.MAX_W, kq.MAX_W),
+        ("10x61x75: 5 noise, 5 gradient + jitter, w=18 wd=18 (MAX_W)",
+         np.stack([rs.rand(61, 75, 3) for _ in range(5)]
+                  + [gradient(61, 75) for _ in range(5)]), kq.MAX_W,
+         kq.MAX_W),
     ]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile_rows = [quickshift_tile_rows(*x.shape[:3], sms) for _, x, _, _ in
+                 cases]
+    covered = {(ty, cw) for ty, (_, x, cw, _) in zip(tile_rows, cases)
+               if x.shape[1] % ty}
+    for ty in (4, 16):
+        if not {(ty, w), (ty, kq.MAX_W)} <= covered:
+            fail(f"no quickshift case of a ragged height takes the 32x{ty} "
+                 f"tile at both w={w} and w={kq.MAX_W} on {sms} SMs")
     dens_err = 0.0
-    labs = []
-    for label, x, cw, cwd in cases:
+    for (label, x, cw, cwd), ty in zip(cases, tile_rows):
         rgbs = torch.as_tensor(x, dtype=torch.float32, device=dev)
         lab = oq.lab_planes(rgbs, 0.2)
         want, want_d = oq.parents_density_plain(lab, cw, cwd, inv2s2,
                                                 max_d2)
-        labs.append((label, lab, cw, cwd, want, want_d))
         got, got_d = kq.parents_density(lab, cw, cwd, inv2s2, max_d2)
         wrapper = kq.quickshift_parents(rgbs, inv2s2, max_d2, 0.2, w=cw,
                                         wd=cwd)
@@ -284,12 +304,12 @@ def check_quickshift(torch, dev):
         if err != 0.0:
             fail(f"quickshift kernel densities differ from the plain "
                  f"version on {label}: max |delta| {err}")
-        print(f"quickshift_parents {label}: parents bit-exact, density "
-              f"max |kernel - plain| = {err:.3g}")
+        print(f"quickshift_parents {label} (32x{ty} tile): parents "
+              f"bit-exact, density max |kernel - plain| = {err:.3g}")
 
-    lab1 = oq.lab_planes(torch.as_tensor(cases[0][1][:1], dtype=torch.float32,
+    lab4 = oq.lab_planes(torch.as_tensor(cases[0][1], dtype=torch.float32,
                                          device=dev), 0.2)
-    lab4 = labs[0][1]
+    lab1 = lab4[:1].contiguous()
     bound_ms, ops = quickshift_bound_ms(1, 224, 224, w, wd)
     row = dict(
         name="quickshift_parents", route="cuda",
@@ -310,9 +330,7 @@ def check_quickshift(torch, dev):
         exp_ms=quickshift_exp_ms(1, 224, 224, w),
         phases_us={f"B={lab.shape[0]}": phase_us(torch, lambda: (
             kq.parents_density(lab, w, wd, inv2s2, max_d2)))
-            for lab in (lab1, lab4)},
-        tile_sweep=sweep_quickshift_tiles(torch, labs, lab1, lab4, w, wd,
-                                          inv2s2, max_d2))
+            for lab in (lab1, lab4)})
     print(f"quickshift_parents: {ops / 1e6:.1f} M FP32 lane operations per "
           f"224 px image over {F32_LANE_OPS_PER_S / 1e12:.1f} T/s; exps "
           f"alone {row['exp_ms'] * 1e3:.2f} us on the special-function "
@@ -322,36 +340,6 @@ def check_quickshift(torch, dev):
                       f"{p['parent']:.2f} us"
                       for b, p in row["phases_us"].items()))
     return row
-
-
-def sweep_quickshift_tiles(torch, labs, lab1, lab4, w, wd, inv2s2, max_d2):
-    """The quickshift kernel rebuilt with each (QS_ROWS, QS_WARPS) of
-    QS_TILES: held bit-exact on every case of check_quickshift, then
-    timed at B=1 and B=4 beside the source's own constants (first row).
-    Counts no launch."""
-    from xai_tpu_torch.kernels import _build
-    from xai_tpu_torch.kernels import quickshift as kq
-
-    out = []
-    for tile in (None, *QS_TILES):
-        defines = () if tile is None else (f"QS_ROWS={tile[0]}",
-                                           f"QS_WARPS={tile[1]}")
-        lib = _build.load("quickshift", defines)
-        entry = (lib, kq.bind(lib))
-        for label, lab, cw, cwd, want, want_d in labs:
-            got, got_d = kq.run(lambda: entry, lab, cw, cwd, inv2s2, max_d2)
-            torch.cuda.synchronize()
-            if not (torch.equal(got, want) and torch.equal(got_d, want_d)):
-                fail(f"quickshift tile {tile} differs from the plain "
-                     f"version on {label}")
-        times = [device_ms(torch, lambda: kq.run(
-            lambda: entry, lab, w, wd, inv2s2, max_d2)) for lab in (lab1,
-                                                                     lab4)]
-        name = "source" if tile is None else f"R={tile[0]} WARPS={tile[1]}"
-        out.append({"tile": name, "ms": times[0], "ms_b4": times[1]})
-        print(f"quickshift tile {name}: bit-exact on every case; B=1 "
-              f"{times[0] * 1e3:.2f} us, B=4 {times[1] * 1e3:.2f} us")
-    return out
 
 
 def run_main_path(torch, dev, out_dir, attr_func):
@@ -563,9 +551,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    report = _build.build([*_build.KERNELS, *(
-        ("quickshift", (f"QS_ROWS={r}", f"QS_WARPS={k}"))
-        for r, k in QS_TILES)])
+    report = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for "
           f"{sorted(report) or 'nothing (already built)'}")
     for name, r in report.items():

@@ -96,22 +96,24 @@ def test_reveal_plain_matches_jax(form, steps):
     assert np.array_equal(got, ref)                      # a select: exact
 
 
-def test_build_keeps_macro_variants_apart():
-    # chip_smoke.py rebuilds quickshift.cu with other tile macros; each
-    # variant gets a library of its own, and the wrappers' build none
-    from xai_tpu_torch.kernels import _build
-    plain = _build.lib_path("quickshift")
-    variant = _build.lib_path("quickshift", ("QS_ROWS=1", "QS_WARPS=4"))
-    assert plain != variant and plain.parent == variant.parent
-    assert _build.lib_path("quickshift", ()) == plain
-    assert _build.label("quickshift") == "quickshift"
-    assert (_build.label(("quickshift", ("QS_ROWS=1", "QS_WARPS=4")))
-            == "quickshift[QS_ROWS=1,QS_WARPS=4]")
-
-
 @pytest.mark.parametrize("klen,nsig", [(31, 31.0), (11, 5.0), (63, 20.0)])
 def test_blur_host_taps_are_what_the_kernel_reads(klen, nsig):
     # the kernel copies klen float32 taps a pass from host memory
     for taps in tblur._factors(klen, nsig):
         assert taps.dtype == np.float32 and taps.shape == (klen,)
         assert taps.flags["C_CONTIGUOUS"] and (taps > 0).all()
+
+
+@pytest.mark.parametrize("name", ["blur", "reveal", "quickshift"])
+def test_build_names_one_library_per_source(name):
+    # a library's name hashes its source and the nvcc flags: an edited
+    # source is rebuilt, never loaded stale; nothing is built to name it
+    from xai_tpu_torch.kernels import _build
+    assert name in _build.KERNELS
+    assert (_build.CSRC / f"{name}.cu").is_file()
+    path = _build.lib_path(name)
+    assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+    assert path.name.startswith(f"lib{name}-")
+    assert path == _build.lib_path(name)
+    others = {_build.lib_path(n) for n in _build.KERNELS if n != name}
+    assert path not in others

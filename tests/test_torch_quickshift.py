@@ -160,9 +160,10 @@ def test_kernel_wrapper_rejects_what_it_cannot_run():
 # and before a library is built or loaded
 @pytest.mark.parametrize("w,wd", [(0, 0), (kq.MAX_W + 1, 4), (6, 7),
                                   (6, -1)])
-def test_kernel_wrapper_rejects_windows_it_does_not_take(w, wd):
+def test_kernel_wrapper_rejects_windows_it_does_not_take(w, wd,
+                                                        monkeypatch):
     built = []
+    monkeypatch.setattr(kq, "_entry", lambda: built.append(1))
     with pytest.raises(ValueError, match="MAX_W|<= w"):
-        kq.run(lambda: built.append(1), torch.zeros(1, 3, 8, 8), w, wd,
-               INV2S2, MAX_D2)
+        kq.parents_density(torch.zeros(1, 3, 8, 8), w, wd, INV2S2, MAX_D2)
     assert not built

@@ -9,10 +9,7 @@ flags, so an edited source is rebuilt and a stale one never loaded.
 
 Nothing is built or loaded at import time: the first wrapper call on a
 CUDA tensor builds what it needs, and ``build()`` builds every kernel at
-once, all ``nvcc`` processes started together.  A build may also pass a
-source extra ``-D`` macros (``chip_smoke.py`` rebuilds ``quickshift.cu``
-with other tile constants to time them against one another); such a
-library gets a name of its own, and no wrapper loads it.
+once, all ``nvcc`` processes started together.
 
 Each C entry point takes ``void*`` pointers, sizes, the device index and
 the stream, and returns ``cudaGetLastError()`` after its launch; the
@@ -27,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -44,37 +41,18 @@ def _nvcc() -> str:
     return path
 
 
-Job = Union[str, Tuple[str, Tuple[str, ...]]]
-
-
-def _job(job: Job) -> Tuple[str, Tuple[str, ...]]:
-    return (job, ()) if isinstance(job, str) else (job[0], tuple(job[1]))
-
-
-def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def lib_path(name: str, defines: Sequence[str] = ()) -> Path:
+def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(_flags(defines)).encode()
-    digest = hashlib.sha1(src + flags).hexdigest()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def label(job: Job) -> str:
-    name, defines = _job(job)
-    return f"{name}[{','.join(defines)}]" if defines else name
-
-
-def build(jobs: Sequence[Job] = KERNELS) -> Dict[str, dict]:
-    """Compile every library in ``jobs`` that is not built yet, one
-    ``nvcc`` per job, all running at once.  A job is a kernel name, or a
-    (name, macros) pair for that source built with ``-D`` of each macro
-    (``"NAME=value"``).  Returns, per compiled job's :func:`label`, its
-    seconds and the compiler's output (``-Xptxas -v``: registers and
-    shared memory per kernel)."""
-    todo = [j for j in map(_job, jobs) if not lib_path(*j).exists()]
+def build(names: Sequence[str] = KERNELS) -> Dict[str, dict]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all running at once.  Returns, per compiled
+    name, its seconds and the compiler's output (``-Xptxas -v``: registers
+    and shared memory per kernel)."""
+    todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
@@ -82,23 +60,21 @@ def build(jobs: Sequence[Job] = KERNELS) -> Dict[str, dict]:
     t0 = time.perf_counter()
     procs = {}
     try:
-        for name, defines in todo:
-            final = lib_path(name, defines)
+        for n in todo:
+            final = lib_path(n)
             tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
-            cmd = [nvcc, *_flags(defines), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[(name, defines)] = (
-                subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True), tmp)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp)
         report = {}
-        for job, (proc, tmp) in procs.items():
+        for n, (proc, tmp) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {label(job)}:\n{log}")
+                raise RuntimeError(f"nvcc failed on csrc/{n}.cu:\n{log}")
             # rename into place: a concurrent process never loads half a file
-            os.replace(tmp, lib_path(*job))
-            report[label(job)] = {"seconds": time.perf_counter() - t0,
-                                  "log": log}
+            os.replace(tmp, lib_path(n))
+            report[n] = {"seconds": time.perf_counter() - t0, "log": log}
         return report
     finally:
         for proc, tmp in procs.values():
@@ -109,12 +85,11 @@ def build(jobs: Sequence[Job] = KERNELS) -> Dict[str, dict]:
                 tmp.unlink()
 
 
-def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """Load the library for ``csrc/<name>.cu`` (built with ``defines``),
-    building it if needed.  Each wrapper loads its library once and keeps
-    it."""
-    build([(name, tuple(defines))])
-    lib = ctypes.CDLL(str(lib_path(name, defines)))
+def load(name: str) -> ctypes.CDLL:
+    """Load the library for ``csrc/<name>.cu``, building it if needed.
+    Each wrapper loads its library once and keeps it."""
+    build([name])
+    lib = ctypes.CDLL(str(lib_path(name)))
     lib.xai_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xai_cuda_error_string.restype = ctypes.c_char_p
     return lib

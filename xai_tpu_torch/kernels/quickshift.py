@@ -19,10 +19,11 @@ window, 196 blocks for 132 SMs at one image) ran at 4.2x the bound that
 density in one float4, blocks registers along y (a thread owns one or two
 pixels, one above another, and each neighbour it loads serves both),
 instantiates LIME's window (w = wd = 12) at compile time, and picks the
-larger of two tiles where its blocks spread evenly over the SMs.  It
-visits every pixel's window in row-major order, as the plain version sums
-it, so the densities are the same floats.  The source note gives the
-design, ``PERF.md`` the tile sweep.
+larger of two tiles (compile-time constants) where its blocks spread
+evenly over the SMs.  It visits every pixel's window in row-major order,
+as the plain version sums it, so the densities are the same floats.  The
+source note gives the design, ``PERF.md`` the tile sweep that chose the
+tiles.
 
 :func:`quickshift_parents` runs the plain version for CPU tensors; for
 CUDA tensors it launches the kernel or raises.  Its parents are
@@ -43,26 +44,21 @@ from . import _build
 MAX_W = 18
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry point of a quickshift library, its types declared."""
+@functools.lru_cache(maxsize=1)
+def _entry():
+    lib = _build.load("quickshift")
     fn = lib.xai_quickshift_parents
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    return lib, fn
 
 
-@functools.lru_cache(maxsize=1)
-def _entry():
-    lib = _build.load("quickshift")
-    return lib, bind(lib)
-
-
-def run(entry, lab: torch.Tensor, w: int, wd: int, inv2s2: float,
-        max_d2: float):
-    """Check ``lab``, then launch on it the library that ``entry()``
-    returns as (library, :func:`bind` entry point); see
-    :func:`parents_density`.  Counts nothing."""
+def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
+                    max_d2: float):
+    """Launch the kernel on LAB * ratio planes ``lab`` [B, 3, H, W] float32
+    on the card.  Returns (parents [B, H, W] int32, density [B, H, W]
+    float32)."""
     if not 1 <= w <= MAX_W or not 0 <= wd <= w:
         raise ValueError(f"quickshift kernel: need 1 <= w <= {MAX_W} and "
                          f"0 <= wd <= w, got w={w}, wd={wd}")
@@ -82,23 +78,13 @@ def run(entry, lab: torch.Tensor, w: int, wd: int, inv2s2: float,
     out = torch.empty((b, h, wi), dtype=torch.int32, device=lab.device)
     if out.numel() == 0:
         return out, dens
-    lib, fn = entry()
+    lib, fn = _entry()
     err = fn(lab.data_ptr(), dens.data_ptr(), out.data_ptr(), b, h, wi, w,
              wd, inv2s2, max_d2, lab.device.index,
              torch.cuda.current_stream(lab.device).cuda_stream)
     _build.check(lib, err, "quickshift_parents")
+    quickshift_parents.launches += 1
     return out, dens
-
-
-def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
-                    max_d2: float):
-    """Launch the kernel on LAB * ratio planes ``lab`` [B, 3, H, W] float32
-    on the card.  Returns (parents [B, H, W] int32, density [B, H, W]
-    float32)."""
-    out = run(_entry, lab, w, wd, inv2s2, max_d2)
-    if lab.numel():
-        quickshift_parents.launches += 1
-    return out
 
 
 def quickshift_parents(rgbs: torch.Tensor, inv2s2: float, max_d2: float,
