@@ -21,19 +21,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (xai_tpu_torch/kernels/bounds.py); the quickshift cases cover both of
    its tiles at ragged heights, and w=18 on both; time its two phases
    with torch.profiler;
-4. drive both main paths through their entry point,
-   evaluate_perturbation --model R101 --synthetic 2 at 224 px with seeded
-   random weights, first --attr_func ig, then --attr_func lime, launch
-   counters zeroed just before each and read just after; each CSV must
-   hold 10 finite scores, and per scored image blur must launch >= 1 time,
-   reveal 3 passes * ceil(225 / 45) chunks = 15 times, and on the LIME
-   path quickshift once;
+   the batched reveal (reveal_batch) is checked bit-exact at
+   [4, 45, 3, 224, 224], at a ragged B=3, S=7 on 3x15x13 (the scalar
+   variant) and at B=1 against reveal_chunk, and timed at B=4 beside
+   torch.where over the batch and its bound;
+4. drive the main paths through their entry point,
+   evaluate_perturbation --model R101 at 224 px with seeded random
+   weights, launch counters zeroed just before each and read just after:
+   --synthetic 2 with --attr_func ig, then lime (image by image); then
+   --image_batch 4 --synthetic 4 --image_count 4000 with ig in f32 and in
+   bf16, and --attr_func lime --image_batch 2 --synthetic 2 --image_count
+   2000 --attr_dtype bf16 (the quota of ceil(image_count / 1000) images a
+   class keeps every noise image, which random weights give one class).
+   Each CSV must hold 10 finite scores; each battery (a scored image, or a
+   flush of a batch) must launch blur once (>= once image by image),
+   reveal 3 passes * ceil(225 / 45) chunks = 15 times, and quickshift
+   once on a LIME path; a batched path must score all its images in full
+   batches;
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
-   injected sample rows;
+   injected sample rows; at B=3 and 32 px (inputs that meet no ReLU kink
+   within float32 rounding), batch_attribution of ig, lig, idg, idgi,
+   grad and inp_x_grad, and sg_batch with injected noise, within 1e-4
+   relative in float32, and the batched battery within 2e-3; bf16 ig
+   against float32 on the card, Spearman rho > 0.98 on the tiny CNN of
+   xai_tpu's bf16 contract;
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
-   attribution of R101, LIME split by stage with CUDA events.
+   attribution of R101, LIME split by stage with CUDA events; then R101 at
+   B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
+   the batched battery, per image, with CUDA events.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -119,8 +136,8 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper by name; each counts its launches."""
     from xai_tpu_torch.kernels.blur import blur_planes
     from xai_tpu_torch.kernels.quickshift import quickshift_parents
-    from xai_tpu_torch.kernels.reveal import reveal_chunk
-    return {"blur_planes": blur_planes, "reveal_chunk": reveal_chunk,
+    from xai_tpu_torch.kernels.reveal import reveal_batch
+    return {"blur_planes": blur_planes, "reveal_batch": reveal_batch,
             "quickshift_parents": quickshift_parents}
 
 
@@ -182,8 +199,11 @@ def check_kernels(torch, dev, x_hwc):
     print(f"per-launch floor (torch.cuda._sleep(0)): {floor_ms * 1e3:.2f} "
           f"us; blur [12, 224, 224]: {rows[-1]['ms_n12'] * 1e3:.2f} us")
 
-    # --- reveal: S=45 at 224 px (the main path), ragged S=1, and a plane
-    # size that is not a multiple of 4 (the scalar variant) ---
+    # --- reveal: one image (reveal_chunk, the B = 1 view): S=45 at 224 px
+    # (the per-image path), ragged S=1, and a plane size that is not a
+    # multiple of 4 (the scalar variant); a batch (reveal_batch):
+    # [4, 45, 3, 224, 224] (the batched path at --image_batch 4), a ragged
+    # B=3, S=7 at 3x15x13 (scalar), and B=1 against reveal_chunk ---
     rs = np.random.RandomState(0)
     finish = kblur.blur_planes(planes)
     flip = torch.from_numpy(pixel_flip_steps(rs.rand(224, 224), 224)
@@ -199,27 +219,66 @@ def check_kernels(torch, dev, x_hwc):
               torch.tensor([0, 5, 14], dtype=torch.int32, device=dev))]
     for case in cases:
         got = kreveal.reveal_chunk(*case)
-        want = kreveal.reveal_chunk_plain(*case)
+        want = kreveal.reveal_batch_plain(*(t[None] for t in case[:3]),
+                                          case[3])[0]
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
             fail(f"reveal kernel disagrees with its plain version at "
                  f"{tuple(want.shape)}")
-    print("reveal_chunk: bit-exact against the plain version "
-          "(S=45 and S=1 at 224 px, 3x15x13)")
+
+    def flips(b, h, w):
+        return torch.from_numpy(np.stack([
+            pixel_flip_steps(rs.rand(h, w), h).reshape(h, w)
+            for _ in range(b)])).to(dev)
+
+    starts4 = torch.randn(4, 3, 224, 224, device=dev, generator=gen)
+    finishes4 = kblur.blur_planes(starts4.view(12, 224, 224)).view(
+        4, 3, 224, 224)
+    flips4 = flips(4, 224, 224)
+    batch_cases = [
+        (starts4, finishes4, flips4, steps45),
+        (torch.rand(3, 3, 15, 13, device=dev),
+         torch.zeros(3, 3, 15, 13, device=dev), flips(3, 15, 13),
+         torch.tensor([0, 2, 3, 5, 8, 13, 15], dtype=torch.int32,
+                      device=dev))]
+    for case in batch_cases:
+        got = kreveal.reveal_batch(*case)
+        want = kreveal.reveal_batch_plain(*case)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"reveal kernel disagrees with its plain version at "
+                 f"{tuple(want.shape)}")
+    one = kreveal.reveal_batch(planes[None], finish[None], flip[None],
+                               steps45)
+    if not torch.equal(one[0], kreveal.reveal_chunk(planes, finish, flip,
+                                                    steps45)):
+        fail("reveal_batch at B=1 differs from reveal_chunk")
+    print("reveal_batch: bit-exact against the plain version (one image: "
+          "S=45 and S=1 at 224 px, 3x15x13; batches: [4, 45, 3, 224, 224], "
+          "B=3 S=7 at 3x15x13; B=1 equal to reveal_chunk)")
     s, (c, h, w) = steps45.shape[0], planes.shape
     rows.append(dict(
-        name="reveal_chunk", route="cuda",
+        name="reveal_batch", route="cuda",
         source="xai_tpu_torch/csrc/reveal.cu",
         replaces="xai_tpu/kernels/reveal.py:30",
         max_abs_err=0.0,
         ms=device_ms(torch, lambda: kreveal.reveal_chunk(
             planes, finish, flip, steps45)),
-        plain_ms=device_ms(torch, lambda: kreveal.reveal_chunk_plain(
-            planes, finish, flip, steps45)),
+        plain_ms=device_ms(torch, lambda: kreveal.reveal_batch_plain(
+            planes[None], finish[None], flip[None], steps45)),
         library_ms=device_ms(torch, lambda: torch.where(
             flip[None, None] <= steps45[:, None, None, None], finish,
             planes)),
-        bound_ms=reveal_bound_ms(s, c, h, w), bound_by="bytes"))
+        bound_ms=reveal_bound_ms(s, c, h, w), bound_by="bytes",
+        ms_b4=device_ms(torch, lambda: kreveal.reveal_batch(
+            starts4, finishes4, flips4, steps45)),
+        plain_ms_b4=device_ms(torch, lambda: kreveal.reveal_batch_plain(
+            starts4, finishes4, flips4, steps45)),
+        bound_ms_b4=reveal_bound_ms(s, c, h, w, b=4)))
+    print(f"reveal_batch [4, 45, 3, 224, 224]: kernel "
+          f"{rows[-1]['ms_b4'] * 1e3:.2f} us, torch.where over the batch "
+          f"{rows[-1]['plain_ms_b4'] * 1e3:.2f} us, bound "
+          f"{rows[-1]['bound_ms_b4'] * 1e3:.2f} us (bytes)")
     return rows
 
 
@@ -342,16 +401,39 @@ def check_quickshift(torch, dev):
     return row
 
 
-def run_main_path(torch, dev, out_dir, attr_func):
-    """Phase 4: the flagship driver on R101 with ``attr_func``, counters
-    zeroed just before and read just after."""
+# the driver paths of phase 4: (label, flags, images in the stream,
+# --image_count, --image_batch).  Random weights usually give noise images
+# one class, so a batched path's --image_count is 1000x its images: the
+# class quota (ceil(image_count / 1000) a class) then keeps them all, the
+# batch fills, and the stream ends at --synthetic.
+MAIN_PATHS = [
+    ("ig", ["--attr_func", "ig"], 2, 2, 1),
+    ("lime", ["--attr_func", "lime"], 2, 2, 1),
+    ("ig_b4", ["--attr_func", "ig"], 4, 4000, 4),
+    ("ig_b4_bf16", ["--attr_func", "ig", "--attr_dtype", "bf16"], 4, 4000,
+     4),
+    ("lime_b2_bf16", ["--attr_func", "lime", "--attr_dtype", "bf16"], 2,
+     2000, 2),
+]
+# 3 passes of ceil(225 / 45) = 5 reveal chunks at 224 px: 224 steps of 224
+# pixels, plus step 0
+REVEAL_PER_BATTERY = 3 * math.ceil((224 * 224 // 224 + 1) / 45)
+
+
+def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
+                  batch):
+    """Phase 4: the flagship driver on R101, counters zeroed just before
+    and read just after.  A per-image path scores image by image (the
+    class quota may skip the second); a batched path must score all its
+    images in full batches."""
     from xai_tpu_torch.runners import evaluate_perturbation as ep
 
-    n_images = 2
+    out_dir = os.path.join(out_dir, label)
+    attr_func = flags[flags.index("--attr_func") + 1]
     args = ep.build_parser().parse_args(
-        ["--model", "R101", "--attr_func", attr_func, "--synthetic",
-         str(n_images), "--image_count", str(n_images), "--output_dir",
-         out_dir, "--verbose"])
+        ["--model", "R101", *flags, "--synthetic", str(n_images),
+         "--image_count", str(count), "--image_batch", str(batch),
+         "--output_dir", out_dir, "--verbose"])
     torch.cuda.reset_peak_memory_stats(dev)
     log = io.StringIO()
     wrappers = kernel_wrappers()
@@ -365,42 +447,47 @@ def run_main_path(torch, dev, out_dir, attr_func):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     print(log.getvalue(), end="")
-    # --verbose prints one line per scored image.  The class quota
-    # (ceil(image_count / 1000) images per predicted class) can skip an
-    # image: two noise images usually get the same top-1 class.
+    # --verbose prints one line per scored image ("[i/n] ..." image by
+    # image, "[batch] ..." in a batch)
     scored = sum(line.startswith("[") for line in log.getvalue().splitlines())
-    if scored < 1:
-        fail(f"the {attr_func} main path scored no image")
+    if scored < 1 or (batch > 1 and scored != n_images):
+        fail(f"the {label} main path scored {scored} of {n_images} images")
 
     with open(os.path.join(out_dir, "R101",
-                           f"{attr_func}_{n_images}_images.csv")) as f:
+                           f"{attr_func}_{count}_images.csv")) as f:
         rows = {r[0]: float(r[1]) for r in csv.reader(f) if r}
     scores = {k: v for k, v in rows.items()
               if k not in ("Attr Avg Runtime", "Total Runtime")}
-    print(f"{attr_func} main path scores:", json.dumps(scores))
+    print(f"{label} main path scores:", json.dumps(scores))
     if len(scores) != 10 or not all(math.isfinite(v) for v in
                                     scores.values()):
         fail(f"expected 10 finite scores, got {scores}")
-    # per scored image: one blur (the battery's substrate; the synthetic
-    # stream skips the gates) and 3 passes of ceil(225 / 45) = 5 reveal
-    # chunks: 224 steps of 224 pixels, plus step 0; LIME segments its
-    # image once (lime_batch with B=1)
-    per_pass = math.ceil((224 * 224 // 224 + 1) / 45)
-    if launches["blur_planes"] < scored:
+    # per battery (one scored image, or one flush of a batch): one blur
+    # launch over all its planes (the synthetic stream skips the gates,
+    # which blur too) and 15 reveal launches; LIME segments its image(s)
+    # in one quickshift launch
+    flushes = scored // batch
+    if batch == 1:
+        ok_blur = launches["blur_planes"] >= scored
+    else:
+        ok_blur = launches["blur_planes"] == flushes
+    want_reveal = REVEAL_PER_BATTERY * flushes
+    want_qs = flushes if attr_func == "lime" else 0
+    if not ok_blur:
         fail(f"blur kernel launched {launches['blur_planes']} times on the "
-             f"{attr_func} main path, expected >= {scored}")
-    if launches["reveal_chunk"] != 3 * per_pass * scored:
-        fail(f"reveal kernel launched {launches['reveal_chunk']} times on "
-             f"the {attr_func} main path, expected {3 * per_pass * scored}")
-    want_qs = scored if attr_func == "lime" else 0
+             f"{label} main path ({flushes} batteries)")
+    if launches["reveal_batch"] != want_reveal:
+        fail(f"reveal kernel launched {launches['reveal_batch']} times on "
+             f"the {label} main path, expected {want_reveal}")
     if launches["quickshift_parents"] != want_qs:
         fail(f"quickshift kernel launched "
-             f"{launches['quickshift_parents']} times on the {attr_func} "
+             f"{launches['quickshift_parents']} times on the {label} "
              f"main path, expected {want_qs}")
-    print(f"{attr_func} main path: {scored} of {n_images} images scored, "
-          f"total {total:.3f} s, attribution "
-          f"{rows['Attr Avg Runtime']:.3f} s/image (driver CSV, first image "
-          f"cold), peak memory {peak / 2**30:.2f} GiB, launches "
+    print(f"{label} main path: {scored} of {n_images} images scored in "
+          f"{flushes} {'flushes of ' + str(batch) if batch > 1 else 'runs'}"
+          f", total {total:.3f} s, attribution "
+          f"{rows['Attr Avg Runtime']:.3f} s/image (driver CSV, first "
+          f"batch cold), peak memory {peak / 2**30:.2f} GiB, launches "
           f"{json.dumps(launches)}")
     return launches
 
@@ -496,6 +583,7 @@ def time_warm_image(torch, dev, card):
     print(f"R101 warm: IG-50 attribution {times['attr'][-1]:.4f} s/image, "
           f"battery {times['battery'][-1]:.4f} s/image "
           f"(cold: {times['attr'][0]:.4f}, {times['battery'][0]:.4f})")
+    per_image = {"ig": times["attr"][-1], "battery": times["battery"][-1]}
 
     # LIME as lime() runs it: B=1, 1000 samples, chunk 100, stage by stage
     imgs = torch.as_tensor(img, device=dev)[None]
@@ -525,6 +613,186 @@ def time_warm_image(torch, dev, card):
           f"({int(counts[0])} segments); by stage (CUDA events): "
           + ", ".join(f"{s} {v:.4f} s" for s, v in split.items())
           + f" on {card}")
+    return bundle, per_image
+
+
+BATCH_METHODS = ("ig", "lig", "idg", "idgi", "grad", "inp_x_grad", "sg")
+
+
+def tiny_cnn(torch, seed: int, device):
+    """The model of xai_tpu's bf16 rank contract (tests/tiny_models.py,
+    tests/test_batch_attr.py): two 3x3 stride-2 'SAME' convolutions (at
+    16 px flax pads (0, 1)), ReLU, global mean, a dense layer of 10
+    classes; seeded random weights."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from xai_tpu_torch.models.common import ModelBundle, ModelMeta
+    from xai_tpu_torch.models.resnet import init_random
+
+    class TinyCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c1 = nn.Conv2d(3, 8, 3, 2)
+            self.c2 = nn.Conv2d(8, 16, 3, 2)
+            self.fc = nn.Linear(16, 10)
+
+        def forward(self, x):
+            x = F.relu(self.c1(F.pad(x, (0, 1, 0, 1))))
+            x = F.relu(self.c2(F.pad(x, (0, 1, 0, 1))))
+            return self.fc(x.mean(dim=(2, 3)))
+
+    return ModelBundle(ModelMeta(name="tiny", family="cnn", img_hw=16,
+                                 num_classes=10, batch_size=10),
+                       init_random(TinyCNN(), seed).to(device))
+
+
+def check_batch_reference(torch, dev):
+    """Phase 5, batched: TINY_R at 32 px, three images, batch_attribution
+    (sg through sg_batch with injected noise) and the batched battery on
+    the card against the same code on the CPU, in float32; then the bf16
+    sweep against float32 on the card."""
+    import numpy as np
+
+    from xai_tpu_torch.methods.batch import batch_attribution, sg_batch
+    from xai_tpu_torch.ops.stats import spearman_np
+    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
+    from xai_tpu_torch.runners.common import (build_bundle, default_blur,
+                                              normalize_input)
+
+    # 32 px, not TINY_R's 64: TINY_R's random weights have zero biases,
+    # so a ReLU input within float32 rounding of zero stays there at every
+    # interpolation step and the device's summation order picks its side
+    # for a whole sweep.  At 64 px (4x the units) these inputs met such a
+    # unit and the card differed from the CPU by up to 8.4e-4; at 32 px
+    # they meet none: each device's float32 lies within 1.2e-6 of its
+    # float64, while TF32 convolutions differ by 9e-3 or more
+    # (tools/torch_float32_parity_probe.py; PERF.md section 6).
+    hw = 32
+    imgs = np.random.RandomState(9).rand(3, hw, hw, 3).astype(np.float32)
+    # sg's noise injected: 4 samples an image, the same on both devices
+    noises = (0.5 * np.random.RandomState(12).randn(3, 4, hw, hw, 3)
+              ).astype(np.float32)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        bundle = build_bundle("TINY_R", seed=1, device=d)
+        xs = torch.stack([normalize_input(im, "cnn", d) for im in imgs])
+        targets = bundle.apply(xs.permute(0, 3, 1, 2)).argmax(-1).tolist()
+        sals = {m: batch_attribution("cnn", m, bundle, xs, imgs, targets,
+                                     None, img_hw=hw)
+                for m in BATCH_METHODS if m != "sg"}
+        sals["sg"] = sg_batch(bundle, xs, torch.tensor(targets, device=d),
+                              noises=noises).cpu().numpy()
+        runs.append((bundle, xs, targets, sals))
+    (b_gpu, x_gpu, t_gpu, s_gpu), (b_cpu, x_cpu, t_cpu, s_cpu) = runs
+    if t_gpu != t_cpu:
+        fail(f"TINY_R batch argmax differs: cuda {t_gpu}, cpu {t_cpu}")
+    errs = {m: float(np.abs(s_gpu[m] - s_cpu[m]).max()
+                     / np.abs(s_cpu[m]).max()) for m in BATCH_METHODS}
+    if not all(e < 1e-4 for e in errs.values()):
+        fail(f"batched attribution on the card differs from the CPU: {errs}")
+    print(f"TINY_R {hw} px, B=3, batch_attribution card vs CPU, float32 rel "
+          "err (< 1e-4): " + ", ".join(f"{m} {e:.3g}"
+                                       for m, e in errs.items()))
+
+    blur = default_blur()
+    sg_, sc_ = (sharded_battery_scores(b, x, s_cpu["ig"], blur, 45, t_cpu)
+                for b, x in ((b_gpu, x_gpu), (b_cpu, x_cpu)))
+    worst = max(abs(g[k] - c[k]) for g, c in zip(sg_, sc_) for k in c)
+    if not (all(math.isfinite(v) for g in sg_ for v in g.values())
+            and worst < 2e-3):
+        fail(f"batched battery on the card differs from the CPU: {worst}")
+    print(f"TINY_R {hw} px, B=3, sharded_battery_scores card vs CPU: max "
+          f"|score delta| {worst:.3g} (< 2e-3)")
+
+    # the bf16 contract of tests/test_batch_attr.py on its model and
+    # inputs: ig at 8 steps, Spearman rho > 0.98 against float32; TINY_R's
+    # rho is printed beside it (its random weights sit near 0.97 on the
+    # CPU, in xai_tpu too)
+    tiny = tiny_cnn(torch, 1, dev)
+    xs16 = np.random.RandomState(9).randn(2, 16, 16, 3).astype(np.float32)
+    rho = {}
+    for label, b, xs, tg, px, steps in (
+            ("tiny CNN 16 px", tiny, xs16, [2, 5], 16, 8),
+            (f"TINY_R {hw} px", b_gpu, x_gpu, t_gpu, hw, 50)):
+        f32, b16 = (batch_attribution("cnn", "ig", b, xs, None, tg, None,
+                                      img_hw=px, steps=steps, dtype=dt)
+                    for dt in (None, torch.bfloat16))
+        rho[label] = min(spearman_np(f, h) for f, h in zip(f32, b16))
+    if not rho["tiny CNN 16 px"] > 0.98:
+        fail(f"bf16 ig on the card: Spearman rho {rho} against float32")
+    print("bf16 ig against float32 on the card, least Spearman rho over "
+          "the images: " + ", ".join(f"{k} {v:.4f}" for k, v in rho.items())
+          + " (contract: tiny CNN > 0.98)")
+
+
+def _event_s(torch, fn):
+    """(result, seconds) of ``fn`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def time_warm_batch(torch, dev, card, bundle, per_image):
+    """Phase 6, batched: R101 at --image_batch 4, each IG-family method in
+    float32 and in bf16 and the batched battery, timed with CUDA events on
+    a second, warm call; printed per image beside the per-image IG-50 and
+    battery of this run."""
+    import numpy as np
+
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.ops.stats import spearman_np
+    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
+    from xai_tpu_torch.runners.common import default_blur, normalize_input
+
+    b = 4
+    imgs = np.random.RandomState(0).rand(b, 224, 224, 3).astype(np.float32)
+    xs = torch.stack([normalize_input(im, "cnn", dev) for im in imgs])
+    targets = [1, 2, 3, 4]
+    per = {}
+    sals = {}
+    for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        for m in ("ig", "lig", "idg", "idgi", "sg"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            for _ in range(2):               # the first call warms up
+                sals[m, dname], sec = _event_s(torch, lambda: (
+                    batch_attribution(
+                        "cnn", m, bundle, xs, imgs, targets,
+                        [torch.Generator(dev).manual_seed(i)
+                         for i in range(b)], dtype=dtype)))
+            per[m, dname] = sec / b
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if not np.isfinite(sals[m, dname]).all():
+                fail(f"batched R101 {m} {dname}: non-finite saliency")
+            print(f"R101 warm batched {m} {dname}: {per[m, dname]:.4f} "
+                  f"s/image at B={b} (peak memory {peak:.2f} GiB)")
+    for _ in range(2):
+        scores, sec = _event_s(torch, lambda: sharded_battery_scores(
+            bundle, xs, sals["ig", "f32"], default_blur(), 45, targets))
+    if not all(math.isfinite(v) for s in scores for v in s.values()):
+        fail("batched R101 battery: non-finite scores")
+    per["battery"] = sec / b
+    # zero-bias random weights give a zero gradient at the black image, so
+    # a LIG cut at its first step leaves a constant map: rho is undefined
+    with np.errstate(invalid="ignore"):
+        rho = {m: min(spearman_np(f, h) for f, h in zip(sals[m, "f32"],
+                                                        sals[m, "bf16"]))
+               for m in ("ig", "lig", "idg", "idgi", "sg")}
+    print(f"R101 warm at B={b}, s/image (CUDA events; per-image path of "
+          f"this run: IG-50 {per_image['ig']:.4f}, battery "
+          f"{per_image['battery']:.4f}): "
+          + ", ".join(f"{m} f32 {per[m, 'f32']:.4f} / bf16 "
+                      f"{per[m, 'bf16']:.4f}"
+                      for m in ("ig", "lig", "idg", "idgi", "sg"))
+          + f"; battery {per['battery']:.4f} on {card}")
+    print("R101 random weights, bf16 against float32, least Spearman rho "
+          "over the images: " + ", ".join(f"{m} {v:.4f}"
+                                          for m, v in rho.items()))
 
 
 def main() -> None:
@@ -567,11 +835,12 @@ def main() -> None:
 
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
-        for attr_func in ("ig", "lime"):
-            by_path[attr_func] = run_main_path(torch, dev, out_dir,
-                                               attr_func)
+        for label, *path in MAIN_PATHS:
+            by_path[label] = run_main_path(torch, dev, out_dir, label, *path)
     check_small_reference(torch, dev)
-    time_warm_image(torch, dev, card)
+    check_batch_reference(torch, dev)
+    bundle, per_image = time_warm_image(torch, dev, card)
+    time_warm_batch(torch, dev, card, bundle, per_image)
 
     for row in rows:
         name = row["name"]

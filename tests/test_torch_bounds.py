@@ -50,3 +50,19 @@ def test_bounds_scale_linearly_in_the_batch(batch):
     # at four images the quickshift bound is 91.92 us
     if batch == 4:
         assert many * 1e3 == pytest.approx(91.92, abs=5e-3)
+
+
+def test_batched_reveal_bound():
+    """Four images of a 45-step chunk at 224 px: 114.0 MB, 34.03 us at
+    3.35 TB/s, the same 8.5 us an image as one image's chunk."""
+    one = kb.reveal_bound_ms(45, 3, 224, 224)
+    assert kb.reveal_bound_ms(45, 3, 224, 224, b=1) == one
+    four = kb.reveal_bound_ms(45, 3, 224, 224, b=4)
+    nbytes = 4 * (45 + 2) * 3 * 224 * 224 * 4 + 4 * 224 * 224 * 4 + 45 * 4
+    assert nbytes == 114_000_052
+    assert four == pytest.approx(nbytes / kb.HBM_BYTES_PER_S * 1e3,
+                                 rel=1e-12)
+    assert four * 1e3 == pytest.approx(34.030, abs=5e-4)
+    # the steps are read once for all images, not once an image
+    assert four == pytest.approx(4 * one - 3 * 45 * 4 /
+                                 kb.HBM_BYTES_PER_S * 1e3, rel=1e-12)

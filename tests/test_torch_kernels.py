@@ -21,6 +21,8 @@ from xai_tpu_torch.kernels import blur as tblur
 from xai_tpu_torch.kernels import reveal as treveal
 from xai_tpu_torch.ops.blur import make_blur_fn
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 JAX_BLURS = {
     "dense": lambda x, k, s: jax_gaussian_blur(x, k, s),
     "separable": lambda x, k, s: separable_blur(x, k, s),
@@ -31,11 +33,11 @@ JAX_BLURS = {
 @pytest.fixture(autouse=True)
 def _zero_counters():
     tblur.blur_planes.launches = 0
-    treveal.reveal_chunk.launches = 0
+    treveal.reveal_batch.launches = 0
     yield
     # a CPU call takes the plain version and never counts a launch
     assert tblur.blur_planes.launches == 0
-    assert treveal.reveal_chunk.launches == 0
+    assert treveal.reveal_batch.launches == 0
 
 
 # the contract of tests/test_kernels.py: |delta| < 1e-5 against the dense
@@ -94,6 +96,46 @@ def test_reveal_plain_matches_jax(form, steps):
         torch.from_numpy(flip), torch.from_numpy(st)).numpy()
     assert got.dtype == np.float32 and got.shape == ref.shape
     assert np.array_equal(got, ref)                      # a select: exact
+
+
+@pytest.mark.parametrize("b,s,h,w", [(3, 7, 15, 13), (2, 45, 16, 16)],
+                         ids=["ragged", "chunk45"])
+@pytest.mark.parametrize("form", ["jnp", "pallas_interpret"])
+def test_reveal_batch_plain_matches_jax_per_image(form, b, s, h, w):
+    """[B, S, C, H, W] in one call, image by image equal to xai_tpu's
+    per-image reveal_batch / pallas_reveal_batch(interpret=True)."""
+    rs = np.random.RandomState(b + s)
+    start = rs.rand(b, h, w, 3).astype(np.float32)
+    finish = rs.rand(b, h, w, 3).astype(np.float32)
+    flip = np.stack([jax_flip_steps(rs.rand(h, w), h).reshape(h, w)
+                     for _ in range(b)])
+    st = np.arange(2, 2 + s, dtype=np.int32)
+    got = treveal.reveal_batch(
+        torch.from_numpy(start.transpose(0, 3, 1, 2).copy()),
+        torch.from_numpy(finish.transpose(0, 3, 1, 2).copy()),
+        torch.from_numpy(flip), torch.from_numpy(st)).numpy()
+    assert got.dtype == np.float32 and got.shape == (b, s, 3, h, w)
+    for i in range(b):
+        if form == "jnp":
+            ref = reveal_batch(jnp.asarray(start[i]), jnp.asarray(finish[i]),
+                               jnp.asarray(flip[i]), jnp.asarray(st))
+        else:
+            ref = pallas_reveal_batch(jnp.asarray(start[i]),
+                                      jnp.asarray(finish[i]), flip[i], st,
+                                      interpret=True)
+        assert np.array_equal(got[i], np.asarray(ref).transpose(0, 3, 1, 2))
+
+
+def test_reveal_chunk_is_the_one_image_batch():
+    rs = np.random.RandomState(4)
+    start, finish = (torch.from_numpy(rs.rand(3, 9, 11).astype(np.float32))
+                     for _ in range(2))
+    flip = torch.from_numpy(jax_flip_steps(rs.rand(9, 11), 9).reshape(9, 11))
+    st = torch.tensor([0, 3, 11], dtype=torch.int32)
+    one = treveal.reveal_chunk(start, finish, flip, st)
+    assert torch.equal(one, treveal.reveal_batch(
+        start[None], finish[None], flip[None], st)[0])
+    assert one.shape == (3, 3, 9, 11)
 
 
 @pytest.mark.parametrize("klen,nsig", [(31, 31.0), (11, 5.0), (63, 20.0)])

@@ -27,6 +27,8 @@ from xai_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from xai_tpu_torch.ops.preprocess import normalize
 from xai_tpu_torch.runners.common import build_bundle
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 HW = 64
 S = 200
 PLANT_HW = 16
@@ -222,7 +224,18 @@ def test_weighted_ridge_matches_xai_tpu():
     assert got[1] == ref[1]
 
 
-def test_lime_dtype_is_not_ported(twins):
-    _, tb = twins
-    with pytest.raises(NotImplementedError, match="A7"):
-        TL.lime(tb, _images()[0], None, dtype=torch.bfloat16, device="cpu")
+def test_lime_bf16_matches_xai_tpu_bf16(twins):
+    """dtype=bf16 on both packages, the same injected rows: the bf16
+    sweep of each package stays within the LIME bf16 contract (masks
+    agreeing on > 80 % of pixels) of the other's and of float32."""
+    jb, tb = twins
+    img = _images()[1]
+    rows = _rows(img[None], seed=5)[0]
+    ref16 = JL.lime(jb, img, jax.random.PRNGKey(0), chunk=50, rows=rows,
+                    dtype=jnp.bfloat16)
+    got16 = TL.lime(tb, img, None, chunk=50, rows=rows,
+                    dtype=torch.bfloat16, device="cpu")
+    got32 = TL.lime(tb, img, None, chunk=50, rows=rows, device="cpu")
+    assert got16.dtype == np.float32 and set(np.unique(got16)) <= {0., 1.}
+    assert (got16 == ref16).mean() > 0.8
+    assert (got16 == got32).mean() > 0.8

@@ -18,6 +18,8 @@ from xai_tpu.ops import quickshift_jax as JQ
 from xai_tpu_torch.kernels import quickshift as kq
 from xai_tpu_torch.ops import quickshift as TQ
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 # LIME's configuration (kernel_size 4, max_dist 200): w = wd = 12
 W12, INV2S2, MAX_D2 = 12, 1.0 / 32.0, 40000.0
 

@@ -19,6 +19,8 @@ from xai_tpu_torch.convert.from_jax import load_params
 from xai_tpu_torch.models import resnet as tres
 from xai_tpu_torch.runners.common import build_bundle
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 HW = 64
 
 

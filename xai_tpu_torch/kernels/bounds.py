@@ -70,9 +70,9 @@ def blur_bound_ms(n: int, h: int, w: int, klen: int) -> Tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def reveal_bound_ms(s: int, c: int, h: int, w: int) -> float:
-    """Bound ms of one reveal chunk (bytes): the start and finish images
-    [c, h, w] float32, the flip steps [h, w] and the S steps read once,
-    the [S, c, h, w] batch written once."""
-    nbytes = (s * c * h * w + 2 * c * h * w) * 4 + (h * w + s) * 4
+def reveal_bound_ms(s: int, c: int, h: int, w: int, b: int = 1) -> float:
+    """Bound ms of one reveal chunk of ``b`` images (bytes): the start and
+    finish images [b, c, h, w] float32, the flip steps [b, h, w] and the S
+    steps read once, the [b, S, c, h, w] batch written once."""
+    nbytes = b * (s * c * h * w + 2 * c * h * w + h * w) * 4 + s * 4
     return nbytes / HBM_BYTES_PER_S * 1e3

@@ -79,7 +79,8 @@ def sweep(bundle, imgs: torch.Tensor, labels: torch.Tensor,
     """Softmax probabilities [B, S, classes] of every sample image.  Each
     chunk of ``chunk`` rows (zero-padded to a multiple) builds its images
     ``where(rows_c[:, labels], img, hide_color)`` and runs one batched
-    forward.  ``normalize_fn`` maps channel-last images."""
+    forward in the bundle's dtype; the softmax is taken in float32.
+    ``normalize_fn`` maps channel-last images."""
     b, h, wi = imgs.shape[:3]
     s = rows.shape[1]
     pad = (-s) % chunk
@@ -94,7 +95,8 @@ def sweep(bundle, imgs: torch.Tensor, labels: torch.Tensor,
         if normalize_fn is not None:
             xb = normalize_fn(xb.permute(0, 1, 3, 4, 2)).permute(
                 0, 1, 4, 2, 3)
-        logits = bundle.apply(xb.reshape((-1,) + xb.shape[2:]))
+        logits = bundle.apply(xb.reshape((-1,) + xb.shape[2:]).to(
+            bundle.dtype))
         probs.append(torch.softmax(logits.float(), dim=-1).view(
             b, rows_c.shape[1], -1))
     return torch.cat(probs, 1)[:, :s]
@@ -158,12 +160,10 @@ def lime_batch(bundle, imgs, generators, num_samples: int = 1000,
     [0, 1], numpy (moved to ``device``, CUDA by default) or a tensor;
     generators: one ``torch.Generator`` per image on that device.
     ``rows`` ([B, S, F<=512] binary) injects the sample rows, used as
-    given.  Returns [B, H, W] float32 binary masks; with ``return_coef``
-    a (masks, [B, F] signed ridge coefficient) tuple, both numpy."""
-    if dtype is not None:
-        raise NotImplementedError(
-            "lime dtype= (the bf16 sweep) is not ported yet (ROADMAP.md "
-            "item A7)")
+    given.  ``dtype=torch.bfloat16`` runs the sweep's forwards on the
+    bundle's bf16 copy; segmentation, ridge and mask stay float32.
+    Returns [B, H, W] float32 binary masks; with ``return_coef`` a
+    (masks, [B, F] signed ridge coefficient) tuple, both numpy."""
     imgs = _as_images(imgs, device)
     b, h, wi = imgs.shape[:3]
     labels, counts = segment(imgs)
@@ -174,7 +174,7 @@ def lime_batch(bundle, imgs, generators, num_samples: int = 1000,
         rows_t = torch.zeros(rows.shape[:2] + (_F_MAX,), dtype=torch.int8,
                              device=imgs.device)
         rows_t[..., :rows.shape[-1]] = torch.from_numpy(rows)
-    probs = sweep(bundle, imgs, labels, rows_t, int(chunk),
+    probs = sweep(bundle.cast(dtype), imgs, labels, rows_t, int(chunk),
                   float(hide_color), normalize_input)
     masks, coef = ridge_select(rows_t, probs, labels, counts,
                                int(num_features), float(kernel_width))

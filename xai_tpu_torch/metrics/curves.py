@@ -7,9 +7,11 @@ from a start image to a finish image, and record the model's softmax
 response at each step.  The schedule is a per-pixel int, "the step at
 which this pixel flips", so the image at step ``s`` is ``where(flip <= s,
 finish, start)``: the reveal kernel (``kernels/reveal.py``) writes a chunk
-of those images straight into one batched forward.  One pass returns
-target prob, top-1 indicator and entropy, so the 8-metric battery costs 3
-passes (blur/ins, zeros/del, zeros/lerf) instead of 8.
+of those images, for every image of a batch, straight into one batched
+forward.  One pass returns target prob, top-1 indicator and entropy, so
+the 8-metric battery costs 3 passes (blur/ins, zeros/del, zeros/lerf)
+instead of 8.  One engine serves both driver paths: the per-image
+battery is the batch of one.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.reveal import reveal_chunk
+from ..kernels.reveal import reveal_batch
 from ..ops.stats import auc_np, entropy_bits, spearman_np
 
 
@@ -49,40 +51,47 @@ def pixel_flip_steps(saliency: np.ndarray, step_size: int,
 # the device engine
 # ---------------------------------------------------------------------------
 
-def _curves_core(apply_fn, start, finish, flip, n_steps: int, chunk: int,
-                 target: int):
-    """start/finish: [C, H, W]; flip: [H, W] int32, all on one device.
-
-    Returns target prob, top-1 indicator and entropy at steps 0..n_steps.
-    When ``chunk`` does not divide the step count the last chunk is
-    ragged: PyTorch needs no static shapes, so it runs only the steps that
-    exist (xai_tpu pads to a whole chunk)."""
+def batched_curves(apply_fn, starts, finishes, flips, targets,
+                   n_steps: int, chunk: int):
+    """starts/finishes: ``[B, C, H, W]``; flips: ``[B, H, W]`` int32;
+    targets: int64 ``[B]``, all on one device.  Returns (target prob,
+    top-1 indicator, entropy), each ``[B, n_steps + 1]``, every image read
+    at its own target.  Each chunk is one reveal launch of ``B * chunk``
+    images into one forward.  When ``chunk`` does not divide the step
+    count the last chunk is ragged: it runs only the steps that exist
+    (xai_tpu pads to a whole chunk)."""
+    b = starts.shape[0]
     total = n_steps + 1
+    tgt = targets.view(b, 1)
     tp, top1, ent = [], [], []
     for s0 in range(0, total, chunk):
         steps = torch.arange(s0, min(s0 + chunk, total), dtype=torch.int32,
-                             device=start.device)
-        logits = apply_fn(reveal_chunk(start, finish, flip, steps))
+                             device=starts.device)
+        imgs = reveal_batch(starts, finishes, flips, steps)
+        logits = apply_fn(imgs.flatten(0, 1)).view(b, steps.shape[0], -1)
         p = torch.softmax(logits, dim=-1)
-        tp.append(p[:, target])
-        top1.append((logits.argmax(dim=-1) == target).to(p.dtype))
+        tp.append(p.gather(2, tgt[:, :, None].expand(-1, p.shape[1], 1))
+                  [..., 0])
+        top1.append((logits.argmax(dim=-1) == tgt).to(p.dtype))
         ent.append(entropy_bits(p))
-    return torch.cat(tp), torch.cat(top1), torch.cat(ent)
+    return torch.cat(tp, 1), torch.cat(top1, 1), torch.cat(ent, 1)
 
 
 @torch.inference_mode()
 def _battery(apply_fn, blur_fn, x, desc, asc, n_steps: int, chunk: int,
-             target: int):
-    """The battery's device work: blur substrate, target selection (argmax
-    when target < 0), and the three reveal passes.  x: [C, H, W];
-    desc/asc: [H, W] int32 flip steps."""
-    blurred = blur_fn(x[None])[0]
+             targets=None):
+    """The battery's device work for a batch: one blur launch over all
+    ``B*C`` planes, the targets (argmax when None), and the three reveal
+    passes.  x: [B, C, H, W]; desc/asc: [B, H, W] int32 flip steps;
+    targets: int64 [B] or None."""
+    if targets is None:
+        targets = apply_fn(x).argmax(dim=-1)
+    blurred = blur_fn(x)
     zeros = torch.zeros_like(x)
-    t = int(apply_fn(x[None])[0].argmax()) if target < 0 else target
-    ins = _curves_core(apply_fn, blurred, x, desc, n_steps, chunk, t)
-    dele = _curves_core(apply_fn, x, zeros, desc, n_steps, chunk, t)
-    lerf = _curves_core(apply_fn, x, zeros, asc, n_steps, chunk, t)
-    return ins, dele, lerf, t
+    ins = batched_curves(apply_fn, blurred, x, desc, targets, n_steps, chunk)
+    dele = batched_curves(apply_fn, x, zeros, desc, targets, n_steps, chunk)
+    lerf = batched_curves(apply_fn, x, zeros, asc, targets, n_steps, chunk)
+    return ins, dele, lerf, targets
 
 
 # ---------------------------------------------------------------------------
@@ -197,31 +206,46 @@ def assemble_battery_scores(ins_tp, ins_t1, del_tp, del_t1, lerf_tp,
 # the full battery — evaluatePerturbation.run_perturbation equivalent
 # ---------------------------------------------------------------------------
 
+def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
+                   step_size: Optional[int] = None, chunk: int = 45,
+                   targets=None) -> list:
+    """All 10 perturbation scores of each image of a batch.
+
+    apply_fn: NCHW batch -> logits (``bundle.apply``).  images:
+    ``[B, H, W, C]`` normalized inputs on the model's device; saliencies:
+    ``[B, H, W]``; targets: one class per image, default argmax
+    (evaluatePerturbation.py:561).  Returns one dict per image of the
+    reference's Counter keys (evaluatePerturbation.py:484-495) -> float
+    score.
+    """
+    saliencies = np.asarray(saliencies)
+    b, h, w, _ = images.shape
+    step_size = step_size or h
+    n_steps = (h * w + step_size - 1) // step_size
+
+    desc = np.stack([pixel_flip_steps(s, step_size) for s in saliencies])
+    asc = np.stack([pixel_flip_steps(s, step_size, descending=False)
+                    for s in saliencies])
+    dev = images.device
+    x = images.permute(0, 3, 1, 2).contiguous()
+    if targets is not None:
+        targets = torch.as_tensor(targets, dtype=torch.int64, device=dev)
+    ins, dele, lerf, _ = _battery(
+        apply_fn, blur_fn, x, torch.from_numpy(desc.reshape(b, h, w)).to(dev),
+        torch.from_numpy(asc.reshape(b, h, w)).to(dev), n_steps, chunk,
+        targets)
+    # one device -> host copy for the five curves the scores read
+    curves = torch.stack([ins[0], ins[1], dele[0], dele[1],
+                          lerf[0]]).cpu().numpy()
+    return [assemble_battery_scores(*curves[:, i], saliencies[i], desc[i],
+                                    n_steps) for i in range(b)]
+
+
 def run_battery(apply_fn, input_img: torch.Tensor, saliency: np.ndarray,
                 blur_fn, step_size: Optional[int] = None, chunk: int = 45,
                 target: Optional[int] = None) -> dict:
-    """Compute all 10 perturbation scores for one image.
-
-    apply_fn: NCHW batch -> logits (``bundle.apply``).  input_img:
-    [H, W, C] normalized input on the model's device.  saliency: [H, W].
-    Returns the reference's Counter keys (evaluatePerturbation.py:484-495)
-    -> float score.
-    """
-    H, W, C = input_img.shape
-    hw = H * W
-    step_size = step_size or H
-    n_steps = (hw + step_size - 1) // step_size
-
-    desc = pixel_flip_steps(saliency, step_size, descending=True)
-    asc = pixel_flip_steps(saliency, step_size, descending=False)
-    dev = input_img.device
-    x = input_img.permute(2, 0, 1).contiguous()
-    ins, dele, lerf, _ = _battery(
-        apply_fn, blur_fn, x, torch.from_numpy(desc.reshape(H, W)).to(dev),
-        torch.from_numpy(asc.reshape(H, W)).to(dev), n_steps, chunk,
-        -1 if target is None else int(target))
-    # one device -> host copy for the five curves the scores read
-    ins_tp, ins_t1, del_tp, del_t1, lerf_tp = torch.stack(
-        [ins[0], ins[1], dele[0], dele[1], lerf[0]]).cpu().numpy()
-    return assemble_battery_scores(ins_tp, ins_t1, del_tp, del_t1, lerf_tp,
-                                   saliency, desc, n_steps)
+    """All 10 perturbation scores of one ``[H, W, C]`` image: the batch of
+    one of :func:`battery_scores`."""
+    return battery_scores(apply_fn, input_img[None],
+                          np.asarray(saliency)[None], blur_fn, step_size,
+                          chunk, None if target is None else [target])[0]

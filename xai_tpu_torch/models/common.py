@@ -10,7 +10,9 @@ transpose from ``[H, W, C]`` once at their boundary.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 
 import torch
 import torch.nn as nn
@@ -36,6 +38,35 @@ class ModelBundle:
     def __init__(self, meta: ModelMeta, module: nn.Module):
         self.meta = meta
         self.module = module.eval().requires_grad_(False)
+        self._casts = {}
+
+    def _first_tensor(self):
+        return next(itertools.chain(self.module.parameters(),
+                                    self.module.buffers()), None)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the module computes in: its first parameter's (or
+        buffer's), float32 for a module that holds neither."""
+        p = self._first_tensor()
+        return torch.float32 if p is None else p.dtype
+
+    @property
+    def device(self) -> torch.device:
+        p = self._first_tensor()
+        return torch.device("cpu") if p is None else p.device
+
+    def cast(self, dtype) -> "ModelBundle":
+        """The bundle with its module in ``dtype`` (``None``: this one).
+        The copy is made once per dtype and kept on the bundle; the float32
+        module is never cast in place — the counterpart of xai_tpu's
+        ``_cast_params_cached``."""
+        if dtype is None or dtype == self.dtype:
+            return self
+        if dtype not in self._casts:
+            self._casts[dtype] = ModelBundle(
+                self.meta, copy.deepcopy(self.module).to(dtype))
+        return self._casts[dtype]
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return self.module(x)
@@ -58,13 +89,26 @@ class ModelBundle:
         cls = int(torch.argmax(pr))
         return cls, float(pr[cls])
 
-    def score_and_grad(self, x: torch.Tensor, target: int):
+    def score_and_grad(self, x: torch.Tensor, target):
         """Batched d logit[target] / d input — the reference's
-        ``getGradientsParallel``.  One batched forward and one backward:
-        each score depends only on its own image, so the gradient of the
-        sum is the per-sample gradient.  Returns (grads, scores)."""
+        ``getGradientsParallel``.  ``target`` is one class for every row,
+        or an int64 ``[N]`` tensor of one class per row.  One batched
+        forward and one backward: each score depends only on its own
+        image, so the gradient of the sum is the per-sample gradient.
+        Scores are taken from float32 logits and the gradient comes back
+        float32 whatever the module's dtype, as xai_tpu's ``_flat_grads``
+        does.  Returns (grads, scores)."""
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            scores = self.apply(x)[:, target]
+            scores = target_scores(self.apply(x).float(), target)
             (g,) = torch.autograd.grad(scores.sum(), x)
-        return g, scores.detach()
+        return g.float(), scores.detach()
+
+
+def target_scores(logits: torch.Tensor, target) -> torch.Tensor:
+    """``[N, classes]`` -> ``[N]``: each row's entry at ``target``, one
+    class or an int64 ``[N]`` tensor of one class per row (xai_tpu's
+    ``take_along_axis``)."""
+    if isinstance(target, torch.Tensor):
+        return logits.gather(1, target.view(-1, 1))[:, 0]
+    return logits[:, target]

@@ -15,10 +15,16 @@ the same rows into both packages.
 Per-image flow (reference :520-599): sorted val stream -> correctly-
 classified filter -> sanity gates (blur/black predictions) -> class-balance
 quota -> attribution via the registry -> run_battery (3 reveal passes fed
-by the reveal kernel) -> accumulate -> CSV.
+by the reveal kernel) -> accumulate -> CSV.  ``--image_batch N`` gathers
+N kept images and runs one batched attribution (``methods/batch.py``) and
+one batched battery (``parallel/sharded_battery.py``) for them; a partial
+last batch goes image by image with its stored targets.
+``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
+model, on both paths.
 
 Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
---attr_func ig --synthetic 2 --image_count 2`` (or ``--attr_func lime``).
+--attr_func ig --synthetic 2 --image_count 2`` (or ``--attr_func lime``;
+add ``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations
 
@@ -31,18 +37,20 @@ import torch
 
 from ..data.classmaps import load_correct_mask
 from ..data.imagenet import ImageNetValStream
+from ..methods.batch import batch_attribution
 from ..metrics.curves import run_battery
+from ..parallel.sharded_battery import sharded_battery_scores
 from ..registry import AttrContext, get_attribution
 from .common import (build_bundle, default_blur, image_gates, model_entry,
                      normalize_input, resolve_device, write_result_csv)
+
+ATTR_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 
 def _reject_unported(args) -> None:
     """Flags whose paths are not ported yet raise, naming the ROADMAP.md
     item that ports them; none is silently ignored."""
     unported = [
-        (args.image_batch > 1, "--image_batch > 1", "A7"),
-        (args.attr_dtype == "bf16", "--attr_dtype bf16", "A7"),
         (args.save_maps, "--save_maps", "A12"),
         (args.shard_images, "--shard_images", "A14"),
         (bool(args.profile_dir), "--profile_dir", "A14"),
@@ -59,6 +67,66 @@ def image_generator(seed: int, index: int, device) -> torch.Generator:
     state = np.random.SeedSequence([seed, index]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device).manual_seed(int(state))
+
+
+def _context(bundle, p, args) -> AttrContext:
+    """The registry context of one kept image ``p``."""
+    return AttrContext(bundle=bundle, x=p["x"], trans_img=p["trans_img"],
+                       target=p["target"], img_hw=bundle.meta.img_hw,
+                       generator=p["generator"],
+                       dtype=ATTR_DTYPES[args.attr_dtype])
+
+
+def _accumulate(result, scores) -> None:
+    for k, v in scores.items():
+        result[k] = result.get(k, 0.0) + v
+
+
+def _score_image(bundle, family, p, blur, result, args):
+    """Attribution and battery of one kept image, image by image.
+    Returns (its scores, the attribution seconds)."""
+    t = time.time()
+    # returns host numpy, so the device work is done when it returns
+    saliency = get_attribution(family, args.attr_func,
+                               _context(bundle, p, args))
+    attr_dt = time.time() - t
+    scores = run_battery(bundle.apply, p["x"], saliency, blur, chunk=45,
+                         target=p["target"])
+    _accumulate(result, scores)
+    return scores, attr_dt
+
+
+def _batch_attribute(bundle, family, pend, args):
+    """Attribute a full pending batch with the batched implementation
+    (``methods/batch.py``), or image by image through the registry where
+    there is none.  Returns ([B, H, W] saliencies, seconds)."""
+    t = time.time()
+    sals = batch_attribution(
+        family, args.attr_func, bundle, torch.stack([p["x"] for p in pend]),
+        np.stack([p["trans_img"] for p in pend]),
+        [p["target"] for p in pend], [p["generator"] for p in pend],
+        img_hw=bundle.meta.img_hw, dtype=ATTR_DTYPES[args.attr_dtype])
+    if sals is None:
+        sals = np.stack([get_attribution(family, args.attr_func,
+                                         _context(bundle, p, args))
+                         for p in pend])
+    # returns host numpy, so the device work is done
+    return sals, time.time() - t
+
+
+def _flush_batch(bundle, family, pend, blur, result, args) -> float:
+    """Batched attribution and batched battery for a full image batch.
+    Returns the attribution seconds."""
+    sals, attr_dt = _batch_attribute(bundle, family, pend, args)
+    all_scores = sharded_battery_scores(
+        bundle, torch.stack([p["x"] for p in pend]), sals, blur, chunk=45,
+        targets=[p["target"] for p in pend])
+    for p, scores in zip(pend, all_scores):
+        _accumulate(result, scores)
+        if args.verbose:
+            print(f"[batch] {p['name']} MAS_ins={scores['MAS_ins']:.4f}")
+    pend.clear()
+    return attr_dt
 
 
 def evaluate_perturbation(args, device=None) -> dict:
@@ -84,6 +152,7 @@ def evaluate_perturbation(args, device=None) -> dict:
     result = {}
     images_used = 0
     attr_time = 0.0
+    batch_buf = []
     t0 = time.time()
     gating = not (args.synthetic or args.skip_gates)
 
@@ -99,24 +168,28 @@ def evaluate_perturbation(args, device=None) -> dict:
         if classes_used[target] == images_per_class:
             continue
         classes_used[target] += 1
-
-        ctx = AttrContext(
-            bundle=bundle, x=x, trans_img=item.trans_img, target=target,
-            img_hw=bundle.meta.img_hw,
-            generator=image_generator(args.seed, item.index, device))
-        t = time.time()
-        # returns host numpy, so the device work is done when it returns
-        saliency = get_attribution(family, args.attr_func, ctx)
-        attr_time += time.time() - t
-
-        scores = run_battery(bundle.apply, x, saliency, blur, chunk=45,
-                             target=target)
-        for k, v in scores.items():
-            result[k] = result.get(k, 0.0) + v
+        p = {"x": x, "trans_img": item.trans_img, "name": item.name,
+             "target": target,
+             "generator": image_generator(args.seed, item.index, device)}
         images_used += 1
+
+        if args.image_batch > 1:
+            batch_buf.append(p)
+            if len(batch_buf) == args.image_batch:
+                attr_time += _flush_batch(bundle, family, batch_buf, blur,
+                                          result, args)
+            continue
+
+        scores, attr_dt = _score_image(bundle, family, p, blur, result, args)
+        attr_time += attr_dt
         if args.verbose:
             print(f"[{images_used}/{args.image_count}] {item.name} "
                   f"cls={target} MAS_ins={scores['MAS_ins']:.4f}")
+
+    # the partial last batch, one image at a time with its stored target
+    # (the batched path needs a full batch)
+    for p in batch_buf:
+        attr_time += _score_image(bundle, family, p, blur, result, args)[1]
 
     total_time = time.time() - t0
     if images_used:
@@ -146,10 +219,14 @@ def build_parser():
     p.add_argument("--profile_dir", type=str, default="",
                    help="not ported yet (raises)")
     p.add_argument("--image_batch", type=int, default=1,
-                   help="values > 1 are not ported yet (raise)")
+                   help="attribute AND score N images per batch (one "
+                        "batched attribution sweep and one batched "
+                        "battery each)")
     p.add_argument("--attr_dtype", type=str, default="f32",
                    choices=["f32", "bf16"],
-                   help="bf16 is not ported yet (raises)")
+                   help="precision of the attribution sweep; bf16 runs "
+                        "the forwards and backwards on a bf16 copy of the "
+                        "model, with float32 Riemann accumulation")
     p.add_argument("--save_maps", action="store_true",
                    help="not ported yet (raises)")
     p.add_argument("--skip_gates", action="store_true",
