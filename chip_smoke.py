@@ -32,12 +32,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    --image_batch 4 --synthetic 4 --image_count 4000 with ig in f32 and in
    bf16, and --attr_func lime --image_batch 2 --synthetic 2 --image_count
    2000 --attr_dtype bf16 (the quota of ceil(image_count / 1000) images a
-   class keeps every noise image, which random weights give one class).
-   Each CSV must hold 10 finite scores; each battery (a scored image, or a
-   flush of a batch) must launch blur once (>= once image by image),
-   reveal 3 passes * ceil(225 / 45) chunks = 15 times, and quickshift
-   once on a LIME path; a batched path must score all its images in full
-   batches;
+   class keeps every noise image, which random weights give one class);
+   then each of the rest of the CNN family (gig, agi, gc, gbp, ggc, gs,
+   fa, occ, shap, rise, xrai) with --synthetic 2 image by image, and the
+   nine of them that batch (agi, gbp, gc, ggc, gs, fa, occ, shap, gig)
+   with --image_batch 4 --synthetic 4 --image_count 4000 in float32, and
+   shap in bf16.  Each CSV must hold 10 finite scores; each battery (a
+   scored image, or a flush of a batch) must launch blur once (>= once
+   image by image), reveal 3 passes * ceil(225 / 45) chunks = 15 times,
+   and quickshift once on a LIME path and never on another; a batched
+   path must score all its images in full batches;
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
@@ -46,11 +50,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    grad and inp_x_grad, and sg_batch with injected noise, within 1e-4
    relative in float32, and the batched battery within 2e-3; bf16 ig
    against float32 on the card, Spearman rho > 0.98 on the tiny CNN of
-   xai_tpu's bf16 contract;
+   xai_tpu's bf16 contract; at B=3 and 32 px the nine batched names of
+   the rest of the family (gs and shap with injected draws) and rise with
+   injected masks, within 1e-4 relative in float32 (gig or agi, where a
+   discrete choice falls the other way on the card in float32, is named,
+   and held within 1e-4 on the model's float64 copy instead);
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
    attribution of R101, LIME split by stage with CUDA events; then R101 at
    B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
-   the batched battery, per image, with CUDA events.
+   the batched battery, per image, with CUDA events; then each of the
+   rest of the family warm on R101, image by image and at B=4 (shap in
+   bf16 too), with CUDA events and peak memory.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -415,9 +425,42 @@ MAIN_PATHS = [
     ("lime_b2_bf16", ["--attr_func", "lime", "--attr_dtype", "bf16"], 2,
      2000, 2),
 ]
+# the rest of the CNN family (ROADMAP A8), and the names of it that
+# xai_tpu batches
+A8_NAMES = ("gig", "agi", "gc", "gbp", "ggc", "gs", "fa", "occ", "shap",
+            "rise", "xrai")
+A8_BATCHED = ("agi", "gbp", "gc", "ggc", "gs", "fa", "occ", "shap", "gig")
+MAIN_PATHS += [(n, ["--attr_func", n], 2, 2, 1) for n in A8_NAMES]
+MAIN_PATHS += [(f"{n}_b4", ["--attr_func", n], 4, 4000, 4)
+               for n in A8_BATCHED]
+MAIN_PATHS.append(("shap_b4_bf16", ["--attr_func", "shap", "--attr_dtype",
+                                    "bf16"], 4, 4000, 4))
 # 3 passes of ceil(225 / 45) = 5 reveal chunks at 224 px: 224 steps of 224
 # pixels, plus step 0
 REVEAL_PER_BATTERY = 3 * math.ceil((224 * 224 // 224 + 1) / 45)
+
+
+def synthetic_classes(torch, dev, n: int) -> list:
+    """R101's (seeded random weights, as the driver builds them) class of
+    each of the first ``n`` images of the driver's --synthetic stream.
+    AGI at the driver's topk=1 attacks class 0 only, and an image whose
+    prediction is class 0 has no attack and maps to 0/0 = NaN, as in
+    xai_tpu: the AGI paths need images of other classes.  With weight
+    seed 0 and stream seed 0 (the driver's defaults) R101 gives none of
+    them class 0; this checks it."""
+    from xai_tpu_torch.data.imagenet import ImageNetValStream
+    from xai_tpu_torch.runners.common import build_bundle, normalize_input
+
+    bundle = build_bundle("R101", device=dev)
+    xs = torch.stack([normalize_input(it.trans_img, "cnn", dev) for it in
+                      ImageNetValStream("", 224, synthetic=n)])
+    with torch.no_grad():
+        classes = bundle.apply(xs.permute(0, 3, 1, 2)).argmax(-1).tolist()
+    print(f"R101 classes of the {n} synthetic images: {classes}")
+    if 0 in classes:
+        fail("a synthetic image is class 0, the only class AGI attacks at "
+             "topk=1: its AGI map would be NaN; choose another seed")
+    return classes
 
 
 def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
@@ -795,6 +838,261 @@ def time_warm_batch(torch, dev, card, bundle, per_image):
                                           for m, v in rho.items()))
 
 
+# batch_attribution's production constants scaled to 32 px (patch grid
+# 4x4, occlusion window 8 stride 4, 5 Shapley permutations), as in
+# tests/test_torch_batch.py
+SMALL_OPTS = {"num_patches": 4, "occ_window": 8, "occ_stride": 4,
+              "shap_samples": 5}
+A8_REL_TOL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    import numpy as np
+
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def agi_choices(torch, bundle, x01, target: int = 0, max_iter: int = 20,
+                epsilon: float = 0.05) -> list:
+    """The discrete choices of AGI's attack toward ``target`` (the loop
+    of xai_tpu_torch/methods/agi.py _agi_attack), iteration by iteration:
+    each image's argmax, the sign of the gradient toward the target, and
+    that gradient's magnitude."""
+    from xai_tpu_torch.methods.agi import _norm_apply
+
+    pert = x01
+    done = torch.zeros(x01.shape[0], dtype=torch.bool, device=x01.device)
+    out = []
+    for _ in range(max_iter):
+        xg = pert.detach().requires_grad_(True)
+        with torch.enable_grad():
+            probs = torch.softmax(_norm_apply(bundle, xg), dim=-1)
+            (g,) = torch.autograd.grad(probs[:, target].sum(), xg)
+        newly = probs.detach().argmax(-1) == target
+        new = torch.clamp(x01 + epsilon * torch.sign(g), 0.0, 1.0)
+        pert = torch.where(~(done | newly)[:, None, None, None], new, pert)
+        out.append((probs.detach().argmax(-1).cpu(), torch.sign(g).cpu(),
+                    g.abs().cpu()))
+        done = done | newly
+        if bool(done.all()):
+            break
+    return out
+
+
+def first_agi_choice(card: list, cpu: list) -> str:
+    """The first iteration at which the card's choices differ from the
+    CPU's, and which choice."""
+    for it, ((p1, s1, g1), (p2, s2, g2)) in enumerate(zip(card, cpu)):
+        if not bool((p1 == p2).all()):
+            return (f"iteration {it}: argmax on the card {p1.tolist()}, on "
+                    f"the CPU {p2.tolist()}")
+        flip = s1 != s2
+        if bool(flip.any()):
+            rel = float((g2[flip] / g2.flatten(1).amax(1).view(-1, 1, 1, 1)
+                         .expand_as(g2)[flip]).max())
+            return (f"iteration {it}: the sign of the gradient toward the "
+                    f"attacked class differs at {int(flip.sum())} pixels, "
+                    f"each |gradient| <= {rel:.2e} of its image's largest")
+    return f"none in the {min(len(card), len(cpu))} iterations compared"
+
+
+def check_a8_reference(torch, dev):
+    """Phase 5, the rest of the CNN family: TINY_R at 32 px, three images,
+    on the card against the same code on the CPU.  gbp, gc, ggc, fa, occ,
+    gig and agi go through batch_attribution; gs and shap through their
+    batched cores with the same injected draws on both devices (the two
+    devices' generators draw differently); rise with 200 injected masks.
+    Each within 1e-4 relative in float32.  gig runs 8 steps, as in
+    tests/test_torch_gig.py: at 50 a feature that lands one ulp short of
+    its end point on one side of an exact equality test (``xc == x_max``)
+    changes every later selection, and float32 and float64 differ by 0.36
+    on the CPU alone.
+
+    gig and agi make discrete choices at every step (gig: which features
+    sit below the |gradient| quantile, and which already sit at their end
+    point; agi: the sign of each gradient toward the attacked class, and
+    each iteration's argmax), over many
+    distinct inputs, and TINY_R's zero-bias random weights put some ReLU
+    input within float32 rounding of zero on some of them: a choice then
+    falls the other way, and the path after it differs.  Where that
+    happens in float32, the check names the choice and prints the
+    float32 error and Spearman rho, and holds the method card vs CPU on
+    the bundle's float64 copy within 1e-4 instead, where no choice can
+    fall the other way on rounding."""
+    import numpy as np
+
+    from xai_tpu_torch.methods import ablation as AB
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.methods.rise import masks_from_grid, rise
+    from xai_tpu_torch.ops.stats import spearman_np
+    from xai_tpu_torch.runners.common import build_bundle, normalize_input
+
+    hw, b = 32, 3
+    imgs = np.random.RandomState(9).rand(b, hw, hw, 3).astype(np.float32)
+    rs = np.random.RandomState(13)
+    gs_draws = [(rs.randn(1, hw, hw, 3).astype(np.float32),
+                 rs.rand(5).astype(np.float32), np.zeros(5, np.int64))
+                for _ in range(b)]
+    perms = np.stack([[rs.permutation(16) for _ in range(5)]
+                      for _ in range(b)])
+    grid = (rs.rand(200, 8, 8) < 0.5).astype(np.float32)
+    offsets = rs.randint(0, 4, (200, 2))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        bundle = build_bundle("TINY_R", seed=1, device=d)
+        xs = torch.stack([normalize_input(im, "cnn", d) for im in imgs])
+        x = xs.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            targets = bundle.apply(x).argmax(-1).tolist()
+        tg = torch.tensor(targets, device=d)
+
+        def batched(m, dtype=None):
+            return batch_attribution("cnn", m, bundle, xs, imgs, targets,
+                                     None, img_hw=hw, steps=8, dtype=dtype,
+                                     opts=SMALL_OPTS)
+
+        sals = {m: batched(m) for m in ("gbp", "gc", "ggc", "fa", "occ",
+                                        "gig", "agi")}
+        draws = [tuple(torch.as_tensor(t, device=d) for t in dr)
+                 for dr in gs_draws]
+        sals["gs"] = AB.gradient_shap_batch(bundle, x, tg, draws) \
+            .sum(dim=1).abs().cpu().numpy()
+        sals["shap"] = (3.0 * AB.shapley_batch(
+            bundle, x, tg, torch.as_tensor(perms, device=d), 4).abs()
+        ).cpu().numpy()
+        masks = masks_from_grid(torch.as_tensor(grid, device=d),
+                                torch.as_tensor(offsets, device=d), hw)
+        sals["rise"] = rise(bundle, xs[0], targets[0], masks=masks) \
+            .cpu().numpy()[None]
+        f64 = {m: batched(m, torch.float64) for m in ("gig", "agi")}
+        runs.append(dict(targets=targets, sals=sals, f64=f64, bundle=bundle,
+                         x01=torch.as_tensor(imgs, device=d)
+                         .permute(0, 3, 1, 2)))
+    card, cpu = runs
+    if card["targets"] != cpu["targets"]:
+        fail(f"TINY_R 32 px argmax differs: cuda {card['targets']}, cpu "
+             f"{cpu['targets']}")
+    report, failures = {}, []
+    for m in sorted(cpu["sals"]):
+        got, want = card["sals"][m], cpu["sals"][m]
+        err = _rel_err(got, want)
+        if err < A8_REL_TOL:
+            report[m] = f"{err:.3g}"
+            continue
+        if m not in card["f64"]:
+            failures.append(f"{m}: rel err {err}")
+            continue
+        rho = min(spearman_np(g, c) for g, c in zip(got, want))
+        if m == "agi":
+            choice = first_agi_choice(
+                *(agi_choices(torch, r["bundle"], r["x01"]) for r in runs))
+        else:
+            choice = (f"{int((got != want).sum())} of {got.size} pixels "
+                      f"differ (which features a step moves: those below "
+                      f"its |gradient| quantile, and those already at "
+                      f"their end point)")
+        err64 = _rel_err(card["f64"][m], cpu["f64"][m])
+        print(f"{m}: float32 card vs CPU rel err {err:.3g}, least Spearman "
+              f"rho {rho:.5f}: a discrete choice fell the other way, "
+              f"{choice}; float64 copy card vs CPU rel err {err64:.3g} "
+              f"(< {A8_REL_TOL})")
+        if not err64 < A8_REL_TOL:
+            failures.append(f"{m}: float64 rel err {err64}")
+        report[m] = f"{err64:.3g} in float64"
+    if failures:
+        fail("the rest of the CNN family on the card differs from the CPU: "
+             + "; ".join(failures))
+    print(f"TINY_R 32 px, B=3 (classes {cpu['targets']}), the rest of the "
+          f"CNN family card vs CPU, rel err (< {A8_REL_TOL}; float32 unless "
+          f"noted): " + ", ".join(f"{m} {e}" for m, e in report.items()))
+
+
+def time_warm_a8(torch, dev, card, bundle):
+    """Phase 6, the rest of the CNN family: one warm attribution of R101
+    per method image by image (through the registry, as the driver calls
+    it) and at B=4 (batch_attribution; shap in bf16 too), with CUDA
+    events, and the peak memory of each.  Phase 4 has run every one of
+    them at these shapes, so every call here is warm."""
+    import numpy as np
+
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.registry import AttrContext, get_attribution
+    from xai_tpu_torch.runners.common import normalize_input
+
+    imgs = np.random.RandomState(0).rand(4, 224, 224, 3).astype(np.float32)
+    xs = torch.stack([normalize_input(im, "cnn", dev) for im in imgs])
+    with torch.no_grad():
+        targets = bundle.apply(xs.permute(0, 3, 1, 2)).argmax(-1).tolist()
+    if 0 in targets:
+        fail(f"a timing image is class 0 (AGI would map it to NaN): "
+             f"{targets}")
+    out = {}
+    for name in A8_NAMES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ctx = AttrContext(bundle=bundle, x=xs[0], trans_img=imgs[0],
+                          target=targets[0],
+                          generator=torch.Generator(dev).manual_seed(0))
+        sal, sec = _event_s(torch, lambda: get_attribution("cnn", name,
+                                                           ctx))
+        if not np.isfinite(sal).all():
+            fail(f"warm R101 {name}: non-finite saliency")
+        out[name, "image"] = (sec, torch.cuda.max_memory_allocated(dev))
+    for name, dname, dtype in ([(n, "f32", None) for n in A8_BATCHED]
+                               + [("shap", "bf16", torch.bfloat16)]):
+        torch.cuda.reset_peak_memory_stats(dev)
+        gens = [torch.Generator(dev).manual_seed(i) for i in range(4)]
+        sal, sec = _event_s(torch, lambda: batch_attribution(
+            "cnn", name, bundle, xs, imgs, targets, gens, dtype=dtype))
+        if not np.isfinite(sal).all():
+            fail(f"warm R101 {name} {dname} at B=4: non-finite saliency")
+        out[name, f"b4 {dname}"] = (sec / 4,
+                                    torch.cuda.max_memory_allocated(dev))
+    for (name, kind), (sec, peak) in out.items():
+        print(f"R101 warm {name} {kind}: {sec:.4f} s/image (peak memory "
+              f"{peak / 2 ** 30:.2f} GiB)")
+    time_gig_inner_loop(torch, dev, bundle, xs[0], imgs[0], targets[0])
+    print("R101 warm, the rest of the CNN family, s/image (CUDA events), "
+          "image by image / B=4 f32: "
+          + ", ".join(f"{n} {out[n, 'image'][0]:.4f}"
+                      + (f" / {out[n, 'b4 f32'][0]:.4f}"
+                         if (n, "b4 f32") in out else "")
+                      for n in A8_NAMES)
+          + f"; shap B=4 bf16 {out['shap', 'b4 bf16'][0]:.4f} on {card}")
+
+
+def time_gig_inner_loop(torch, dev, bundle, x, img, target):
+    """Guided IG's time split: its 50 softmax gradients, timed alone, and
+    the inner path search, the rest.  Each inner iteration takes one
+    torch.kthvalue and one host sync; counting kthvalue's calls counts
+    the iterations."""
+    from xai_tpu_torch.methods.gig import _softmax_grad
+    from xai_tpu_torch.registry import AttrContext, get_attribution
+
+    ctx = AttrContext(bundle=bundle, x=x, trans_img=img, target=target)
+    calls = []
+    kthvalue = torch.kthvalue
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return kthvalue(*args, **kwargs)
+
+    torch.kthvalue = counted
+    try:
+        _, sec = _event_s(torch, lambda: get_attribution("cnn", "gig", ctx))
+    finally:
+        torch.kthvalue = kthvalue
+    x1 = x.permute(2, 0, 1)[None].contiguous()
+    tg = torch.tensor([target], device=dev)
+    _, grad_sec = _event_s(torch, lambda: [_softmax_grad(bundle, x1, tg)
+                                           for _ in range(50)])
+    n = len(calls)
+    print(f"R101 warm gig image by image: {sec:.4f} s = 50 softmax "
+          f"gradients {grad_sec:.4f} s + {n} inner iterations "
+          f"{sec - grad_sec:.4f} s ({(sec - grad_sec) / max(n, 1) * 1e3:.3f}"
+          f" ms each, one host sync each)")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -833,14 +1131,17 @@ def main() -> None:
     rows = check_kernels(torch, dev, x_hwc)
     rows.append(check_quickshift(torch, dev))
 
+    synthetic_classes(torch, dev, 4)
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
         for label, *path in MAIN_PATHS:
             by_path[label] = run_main_path(torch, dev, out_dir, label, *path)
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
+    check_a8_reference(torch, dev)
     bundle, per_image = time_warm_image(torch, dev, card)
     time_warm_batch(torch, dev, card, bundle, per_image)
+    time_warm_a8(torch, dev, card, bundle)
 
     for row in rows:
         name = row["name"]
@@ -851,6 +1152,7 @@ def main() -> None:
         print(f"{name}: kernel {row['ms'] * 1e3:.2f} us, plain "
               f"{row['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}) on {card}")
+    print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,9 @@ from xai_tpu.methods import batch as JB
 from xai_tpu.runners.common import build_bundle as jax_build_bundle
 from xai_tpu.runners.common import save_params
 
+from xai_tpu_torch.methods import ablation as AB
 from xai_tpu_torch.methods import batch as TB
+from xai_tpu_torch.methods import gradient as TG
 from xai_tpu_torch.methods import lime as TL
 from xai_tpu_torch.models.common import ModelBundle, ModelMeta
 from xai_tpu_torch.registry import AttrContext, get_attribution
@@ -94,10 +96,15 @@ def test_sg_batch_matches_xai_tpu(twins, alpha_star):
 
 
 @pytest.mark.parametrize("name", ["ig", "lig", "idg", "idgi", "sg", "grad",
-                                  "inp_x_grad", "lime"])
+                                  "inp_x_grad", "lime", "gbp", "gc", "ggc",
+                                  "gs", "fa", "occ", "gig"])
 def test_batched_equals_per_image(twins, name):
     """The driver's two paths: batch_attribution against the registry's
-    per-image entry, on generators seeded alike."""
+    per-image entry, on generators seeded alike.  (agi's batch against
+    its per-image path is held at 32 px in test_torch_rise_agi.py: at 64
+    px a discrete choice of the attack, a gradient's sign or a step's
+    argmax, falls the other way between the batch of three and the batch
+    of one.)"""
     _, tb, xs, targets, _ = twins
     trans = np.random.RandomState(3).rand(B, HW, HW, 3).astype(np.float32)
     got = TB.batch_attribution("cnn", name, tb, xs, trans, targets,
@@ -115,8 +122,107 @@ def test_batched_equals_per_image(twins, name):
                                        err_msg=name)
 
 
+# batch_attribution's production constants cut to 32 px, as
+# tests/test_batch_attr.py cuts them
+SMALL_OPTS = {"num_patches": 4, "occ_window": 8, "occ_stride": 4,
+              "shap_samples": 5}
+
+
+@pytest.fixture(scope="module")
+def twins32(twins):
+    """The twins at 32 px, where float32 forwards in XLA and oneDNN keep
+    gig's quantile and agi's signs and argmaxes on the same side (at 64 px
+    TINY_R's zero-bias random weights put ReLU inputs within rounding of
+    zero); trans: [0, 1] images for agi."""
+    jb, tb, _, _, keys = twins
+    rs = np.random.RandomState(1)
+    xs = rs.randn(B, 32, 32, 3).astype(np.float32)
+    trans = rs.rand(B, 32, 32, 3).astype(np.float32)
+    targets = np.array(jnp.argmax(jb.apply(jb.params, jnp.asarray(xs)),
+                                  axis=-1))
+    targets[1] = (targets[1] + 3) % 1000
+    return jb, tb, xs, trans, targets, keys
+
+
+@pytest.mark.parametrize("name", ["gbp", "gc", "ggc", "fa", "occ", "gig",
+                                  "agi"])
+def test_a8_batch_attribution_matches_xai_tpu(twins32, name):
+    """The rest of the CNN family's batched path against xai_tpu's generic
+    adapters (gs and shap draw from the keys: they are held against the
+    port's per-image path below, and against xai_tpu in
+    test_torch_ablation.py with injected draws)."""
+    jb, tb, xs, trans, targets, keys = twins32
+    ref = JB.batch_attribution("cnn", name, jb, xs, trans, targets, keys,
+                               img_hw=32, steps=STEPS, opts=SMALL_OPTS)
+    got = TB.batch_attribution("cnn", name, tb, xs, trans, targets,
+                               _generators(), img_hw=32, steps=STEPS,
+                               opts=SMALL_OPTS)
+    assert got.dtype == np.float32 and got.shape == ref.shape == (B, 32, 32)
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=2e-3, err_msg=name)
+
+
+def test_shap_batch_equals_per_image(twins32):
+    """Batched Shapley sampling draws each image's permutations from its
+    generator as the per-image function does."""
+    _, tb, xs, _, targets, _ = twins32
+    got = TB.batch_attribution("cnn", "shap", tb, xs, xs, targets,
+                               _generators(), img_hw=32, opts=SMALL_OPTS)
+    for i, g in enumerate(_generators()):
+        want = AB.shapley_sampling(tb, torch.from_numpy(xs[i]),
+                                   int(targets[i]), g, num_patches=4,
+                                   n_samples=5)
+        np.testing.assert_allclose(got[i], TG.to_saliency(want), atol=2e-4,
+                                   rtol=2e-3)
+
+
+@pytest.mark.parametrize("name", ["gbp", "gc", "ggc", "gs", "fa", "occ",
+                                  "gig", "agi"])
+def test_a8_bf16_batch_runs_the_bf16_copy(twins32, name):
+    """dtype=bf16 runs the method's forwards on the bundle's bf16 copy and
+    returns finite float32 maps (xai_tpu records no bf16 contract for
+    these names)."""
+    _, tb, xs, trans, targets, _ = twins32
+    seen = []
+    low = tb.cast(torch.bfloat16)
+    hooks = [m.module.conv1.register_forward_pre_hook(
+        lambda mod, a: seen.append(a[0].dtype)) for m in (low, low.guided())]
+    try:
+        got = TB.batch_attribution("cnn", name, tb, xs, trans, targets,
+                                   _generators(), img_hw=32, steps=4,
+                                   dtype=torch.bfloat16, opts=SMALL_OPTS)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert seen and set(seen) == {torch.bfloat16}
+    assert got.dtype == np.float32 and got.shape == (B, 32, 32)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("name", ["gig", "agi"])
+def test_a8_float64_copy_keeps_float64_scores(twins32, name, monkeypatch):
+    """On the bundle's float64 copy, gig's and agi's softmax runs in
+    float64 (the card-vs-CPU check of chip_smoke.py rests on it), and
+    the maps agree with float32 at 32 px."""
+    _, tb, xs, trans, targets, _ = twins32
+    seen = []
+    softmax = torch.softmax
+
+    def recorded(x, *args, **kwargs):
+        seen.append(x.dtype)
+        return softmax(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "softmax", recorded)
+    f64 = TB.batch_attribution("cnn", name, tb, xs, trans, targets, None,
+                               img_hw=32, steps=STEPS, dtype=torch.float64,
+                               opts=SMALL_OPTS)
+    assert seen and set(seen) == {torch.float64} and f64.dtype == np.float32
+    monkeypatch.undo()
+    f32 = TB.batch_attribution("cnn", name, tb, xs, trans, targets, None,
+                               img_hw=32, steps=STEPS, opts=SMALL_OPTS)
+    assert np.max(np.abs(f64 - f32)) <= 1e-4 * np.max(np.abs(f32))
+
+
 @pytest.mark.parametrize("family,name,item", [
-    ("cnn", "gbp", "A8"), ("cnn", "gig", "A8"), ("cnn", "agi", "A8"),
     ("vit", "attn", "A10"), ("clip", "eclip", "A11")])
 def test_unported_batch_names_raise(twins, family, name, item):
     _, tb, xs, targets, _ = twins

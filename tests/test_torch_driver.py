@@ -120,6 +120,58 @@ def test_driver_lime_csv_matches_xai_tpu(tmp_path, params_path,
         assert np.isfinite(float(g))
 
 
+def _patch_fa(monkeypatch):
+    """Both registries' fa entry on a 32x32 patch grid (2 px patches):
+    xai_tpu's patch mask needs the image size to be a multiple of the
+    grid, and its driver's 14x14 raises at TINY_R's 64 px.  With larger
+    patches the map's plateaus hold many pixels within the two
+    libraries' last-bit differences (fa subtracts nearby logits; the maps
+    agree within 3e-5 relative), their reveal order differs, and the
+    discrete scores move: AIC_del by one step of 1/32 at 8 px patches,
+    MONO_pos by 2.1e-3 at 4 px."""
+    from xai_tpu import registry as jax_registry
+    from xai_tpu.methods import ablation as JAB
+    from xai_tpu_torch import registry as torch_registry
+    from xai_tpu_torch.methods import ablation as TAB
+
+    for reg, ab in ((jax_registry, JAB), (torch_registry, TAB)):
+        monkeypatch.setitem(reg.CNN_METHODS, "fa", reg._abs_sum(
+            lambda c, reg=reg, ab=ab: reg._down_up(ab.feature_ablation(
+                c.bundle, c.x, c.target, num_patches=32), c.img_hw)))
+
+
+@pytest.mark.parametrize("name,batch", [("gc", 1), ("fa", 1), ("gc", 2)],
+                         ids=["gc", "fa", "gc_batched"])
+def test_driver_a8_csv_matches_xai_tpu(tmp_path, params_path, monkeypatch,
+                                       name, batch):
+    """Two methods of the rest of the CNN family through both drivers on
+    the same weights, image by image (and gc batched: one batch of two and
+    a tail of one)."""
+    if name == "fa":
+        _patch_fa(monkeypatch)
+    flags = ["--attr_func", name, "--synthetic", "3", "--image_count",
+             "3000" if batch > 1 else "3", "--image_batch", str(batch)]
+    ref = _run(tmp_path, "jax", "TINY_R", params_path, flags)
+    got = _run(tmp_path, "torch", "TINY_R", params_path, flags)
+    assert list(got) == list(ref) and len(got) == 10
+    for k in ref:
+        # the tolerance of the IG CSV case
+        assert abs(got[k] - ref[k]) < 2e-3, (k, got[k], ref[k])
+        assert np.isfinite(got[k])
+
+
+@pytest.mark.parametrize("name", ["gig", "agi", "gbp", "ggc", "gs", "occ",
+                                  "shap", "rise", "xrai"])
+def test_a8_names_run_the_driver_on_the_cpu(tmp_path, params_path, name):
+    """The rest of the CNN family (gc and fa above) through the port's
+    driver on TINY_R at the production constants: 10 finite scores."""
+    scores = _run(tmp_path, "torch", "TINY_R", params_path,
+                  ["--attr_func", name, "--synthetic", "1", "--image_count",
+                   "1"])
+    assert len(scores) == 10
+    assert all(np.isfinite(v) for v in scores.values()), scores
+
+
 def test_image_generators_are_seeded_per_image():
     draw = [torch.randint(0, 2 ** 30, (4,), generator=TD.image_generator(
         seed, index, "cpu")) for seed, index in ((0, 5), (0, 5), (0, 6),

@@ -4,11 +4,14 @@ Module names mirror ``xai_tpu`` so each piece has an obvious counterpart:
 
 - ``models``   — ResNet family as ``nn.Module``s with stage taps (NCHW inside)
 - ``convert``  — the weight carry from ``xai_tpu``'s saved ``.npz`` params
-- ``methods``  — gradient-path attributions (grad, input×grad, IG, LIG)
-  and LIME
+- ``methods``  — every CNN attribution of the registry: the gradient
+  path (grad, input×grad, IG, LIG, IDG, IDGI, SmoothGrad), LIME, guided
+  backprop and Grad-CAM, the ablation family, RISE, AGI, Guided IG, XRAI,
+  and their batched forms
 - ``metrics``  — the 10-score perturbation battery (ranked-reveal curves)
 - ``ops``      — preprocessing, the blur substrate, quickshift
-  superpixels, curve statistics
+  superpixels, resizes, curve statistics
+- ``native``   — XRAI's Felzenszwalb segmenter (C++, g++ at first use)
 - ``kernels``  — hand-written CUDA kernels for ``sm_90a`` (built at first
   use with ``nvcc``) and their plain PyTorch versions
 - ``data``     — ImageNet-val stream and class maps

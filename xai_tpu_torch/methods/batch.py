@@ -4,23 +4,32 @@ Counterpart of ``xai_tpu/methods/batch.py``, CNN family.  The IG family
 (ig, lig, idg, idgi, sg) folds the image axis into the chunked
 interpolation sweep of ``methods/gradient.py``: one flat sweep over
 ``B*steps`` (``B*samples*steps`` for sg) images with one target per row,
-per-image cutoffs and redistributions as batched tensor logic.  grad and
-inp_x_grad are one batched ``score_and_grad``; lime goes through
-``lime_batch``.
+per-image cutoffs and redistributions as batched tensor logic.  grad,
+inp_x_grad, gbp, gc and ggc are one batched backward each; gs, fa, occ
+and shap run their cores of ``methods/ablation.py`` over the batch, with
+each image's draws taken from its own generator as the per-image path
+takes them; gig and agi run their batched loops; lime goes through
+``lime_batch``.  rise and xrai have no batched form, in xai_tpu either.
 
 Outputs are final ``[B, H, W]`` float32 numpy saliencies, post-processed
 as the single-image registry entries are, so the driver's battery takes
 them directly.  ``dtype=torch.bfloat16`` runs the sweeps on the bundle's
-bf16 copy; the Riemann means and the products with the input stay
-float32.
+bf16 copy (agi: its attacks, after the float32 model's initial
+prediction); the Riemann means, the products with the input, the scores
+and the maps stay float32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import ablation as AB
+from .agi import agi_batch
+from .gig import guided_ig_batch
+from .guided import guided_grads, layer_gradcam
 from .gradient import (_channel0, _fit_chunk, _idg_sweep, _idgi_sweep,
                        _ig_sweep, sg_noise)
+from ..ops.resize import resize_bilinear, resize_nearest_exact
 
 # xai_tpu's batched names (xai_tpu/methods/batch.py BATCH_NAMES)
 BATCH_NAMES = {
@@ -32,9 +41,16 @@ BATCH_NAMES = {
     "clip": ("eclip", "eclip_nograd", "eclip_wo", "maskclip", "grad_cam",
              "selfattn", "game", "rollout", "lrp", "m2ib", "surgery"),
 }
-PORTED = ("ig", "lig", "idg", "idgi", "sg", "grad", "inp_x_grad", "lime")
-# the ROADMAP.md item that ports the rest of each family
-NOT_PORTED_ITEM = {"cnn": "A8", "vit": "A10", "clip": "A11"}
+# the ROADMAP.md item that ports each family still to come
+NOT_PORTED_ITEM = {"vit": "A10", "clip": "A11"}
+# production driver constants (evaluatePerturbation.py:94-97, 164-176),
+# overridable through batch_attribution(opts=...) for small shapes
+_DEFAULT_OPTS = {
+    "num_patches": 14,        # fa/shap patch grid, fa/occ down/up grid
+    "occ_window": 64, "occ_stride": 32,
+    "shap_samples": 25,
+    "gc_layer": "layer4",
+}
 
 
 def has_batch_impl(family: str, name: str) -> bool:
@@ -105,37 +121,80 @@ def sg_batch(bundle, xs, targets, generators=None, steps=50, samples=25,
                      .mean(dim=1))
 
 
-def _grad_batch(bundle, xs, targets, dtype, times_input: bool):
+def _down_up(maps: torch.Tensor, img_hw: int, num_patches: int
+             ) -> torch.Tensor:
+    """``[B, H, W]``: NEAREST_EXACT to the patch grid, bilinear back."""
+    return resize_bilinear(resize_nearest_exact(
+        maps, (num_patches, num_patches)), (img_hw, img_hw))
+
+
+def _generic_batch(name, bundle, xs, tg, generators, img_hw, steps, opts):
+    """``[B, H, W]`` saliencies of the methods xai_tpu batches through its
+    generic per-image adapters (``_cnn_adapter``): gbp, gc, ggc, gs, fa,
+    occ, shap and gig, on ``bundle`` (the sweep's dtype).  A map that the
+    per-image entry broadcasts over the 3 channels is abs-summed as 3|m|."""
     x = _nchw(xs)
-    sweep = bundle.cast(dtype)
-    g, _ = sweep.score_and_grad(x.to(sweep.dtype), targets)
-    return _saliency(x * g if times_input else g)
+    n_p = opts["num_patches"]
+    if name == "gbp":
+        return _saliency(guided_grads(bundle, x, tg))
+    if name in ("gc", "ggc"):
+        cam = layer_gradcam(bundle, x, tg, opts["gc_layer"])
+        if name == "gc":
+            return 3.0 * resize_bilinear(cam, (img_hw, img_hw)).abs()
+        up = resize_nearest_exact(cam, (img_hw, img_hw))
+        return _saliency(guided_grads(bundle, x, tg) * up[:, None])
+    if name == "gs":
+        return _saliency(AB.gradient_shap_batch(
+            bundle, x, tg, [AB.gs_draws(xi, g)
+                            for xi, g in zip(xs, generators)]))
+    if name == "fa":
+        return 3.0 * _down_up(AB.feature_ablation_batch(bundle, x, tg, n_p),
+                              img_hw, n_p).abs()
+    if name == "occ":
+        return 3.0 * _down_up(AB.occlusion_batch(
+            bundle, x, tg, opts["occ_window"], opts["occ_stride"]),
+            img_hw, n_p).abs()
+    if name == "shap":
+        perms = torch.stack([AB.shapley_perms(g, n_p ** 2,
+                                              opts["shap_samples"])
+                             for g in generators])
+        return 3.0 * AB.shapley_batch(bundle, x, tg, perms, n_p).abs()
+    if name == "gig":
+        return _saliency(guided_ig_batch(bundle, x, tg, steps))
+    # grad, inp_x_grad
+    g, _ = bundle.score_and_grad(x.to(bundle.dtype), tg)
+    return _saliency(x * g if name == "inp_x_grad" else g)
 
 
 def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
-                      generators, img_hw=224, steps=50, dtype=None):
+                      generators, img_hw=224, steps=50, dtype=None,
+                      opts=None):
     """``[B, H, W]`` float32 numpy saliencies of a batch in a few fused
     sweeps.  xs: ``[B, H, W, C]`` normalized images (moved to the
-    bundle's device); trans_imgs: ``[B, H, W, 3]`` in [0, 1] (lime);
+    bundle's device); trans_imgs: ``[B, H, W, 3]`` in [0, 1] (lime, agi);
     targets: ``[B]`` classes; generators: one ``torch.Generator`` per
-    image on the bundle's device (sg, lime).
+    image on the bundle's device (sg, gs, shap, lime).  ``opts``
+    overrides the production method constants (``_DEFAULT_OPTS``).
 
-    Returns None when xai_tpu has no batched implementation either, so
-    that the caller loops the per-image path.  A name that xai_tpu batches
-    and this package has not ported raises ``NotImplementedError`` naming
-    the ROADMAP.md item that ports it."""
-    if family in ("vit", "clip") or (has_batch_impl(family, name)
-                                     and name not in PORTED):
+    Returns None when xai_tpu has no batched implementation either (rise,
+    xrai), so that the caller loops the per-image path.  The ViT and CLIP
+    families raise ``NotImplementedError`` naming the ROADMAP.md item that
+    ports them."""
+    if family in NOT_PORTED_ITEM:
         raise NotImplementedError(
             f"batched {family} attribution '{name}' is not ported yet "
             f"(ROADMAP.md item {NOT_PORTED_ITEM[family]})")
-    if family != "cnn" or name not in PORTED:
+    if not has_batch_impl(family, name):
         return None
+    opts = {**_DEFAULT_OPTS, **(opts or {})}
     if name == "lime":
         from .lime import lime_batch
         # registry parity: the model on the unnormalized image, mask * 3
         return 3.0 * lime_batch(bundle, np.asarray(trans_imgs), generators,
                                 dtype=dtype, device=bundle.device)
+    if name == "agi":
+        return agi_batch(bundle, np.asarray(trans_imgs), dtype=dtype) \
+            .abs().cpu().numpy()
     xs = torch.as_tensor(xs, dtype=torch.float32, device=bundle.device)
     tg = torch.as_tensor(np.asarray(targets), dtype=torch.int64,
                          device=bundle.device)
@@ -149,5 +208,6 @@ def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
     elif name == "sg":
         sal = sg_batch(bundle, xs, tg, generators, steps, dtype=dtype)
     else:
-        sal = _grad_batch(bundle, xs, tg, dtype, name == "inp_x_grad")
+        sal = _generic_batch(name, bundle.cast(dtype), xs, tg, generators,
+                             img_hw, steps, opts)
     return sal.float().cpu().numpy()

@@ -17,6 +17,8 @@ import itertools
 import torch
 import torch.nn as nn
 
+from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelMeta:
@@ -27,18 +29,24 @@ class ModelMeta:
     img_hw: int = 224
     num_classes: int = 1000
     batch_size: int = 50            # reference's per-model chunk size
+    # the normalization of the model's input (AGI composes it into the
+    # model); every CNN of the port takes ImageNet's
+    mean: tuple = IMAGENET_MEAN
+    std: tuple = IMAGENET_STD
 
 
 class ModelBundle:
     """A model as a frozen module plus its metadata.
 
     ``apply`` maps an NCHW batch to logits; ``apply_taps`` also returns the
-    dict of stage activations (see resnet.py)."""
+    dict of stage activations (see resnet.py); ``apply_probed`` adds zero
+    probes to them."""
 
     def __init__(self, meta: ModelMeta, module: nn.Module):
         self.meta = meta
         self.module = module.eval().requires_grad_(False)
         self._casts = {}
+        self._guided = None
 
     def _first_tensor(self):
         return next(itertools.chain(self.module.parameters(),
@@ -68,6 +76,17 @@ class ModelBundle:
                 self.meta, copy.deepcopy(self.module).to(dtype))
         return self._casts[dtype]
 
+    def guided(self) -> "ModelBundle":
+        """The bundle with every ReLU under guided backprop's rule
+        (``methods/guided.py guided_relu``), made once and kept on the
+        bundle: the counterpart of xai_tpu's ``_guided_apply_cached``."""
+        if self._guided is None:
+            from ..methods.guided import guided_relu
+            from .resnet import set_relu
+            self._guided = ModelBundle(
+                self.meta, set_relu(copy.deepcopy(self.module), guided_relu))
+        return self._guided
+
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return self.module(x)
 
@@ -77,6 +96,12 @@ class ModelBundle:
 
     def apply_taps(self, x: torch.Tensor):
         return self.module(x, taps=True)
+
+    def apply_probed(self, x: torch.Tensor, probes: dict):
+        """(logits, taps) with ``probes[name]`` added to the tap ``name``:
+        the gradient with respect to a zero probe is the gradient with
+        respect to that activation."""
+        return self.module(x, taps=True, probes=probes)
 
     @torch.inference_mode()
     def probs(self, x: torch.Tensor) -> torch.Tensor:

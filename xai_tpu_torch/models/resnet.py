@@ -11,12 +11,11 @@ Inference BatchNorm is folded into a per-channel ``x * scale + bias``
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-
 
 
 class FoldedBN(nn.Module):
@@ -41,8 +40,10 @@ class Bottleneck(nn.Module):
     groups)-bn-relu, conv1x1-bn, + skip, relu."""
 
     def __init__(self, in_features: int, width: int, out_features: int,
-                 stride: int = 1, groups: int = 1):
+                 stride: int = 1, groups: int = 1,
+                 relu: Callable = F.relu):
         super().__init__()
+        self.relu = relu
         self.conv1 = _conv(in_features, width, 1)
         self.bn1 = FoldedBN(width)
         self.conv2 = _conv(width, width, 3, stride, 1, groups)
@@ -56,13 +57,13 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FoldedBN(out_features)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x
         if self.downsample_conv is not None:
             residual = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(y + residual)
+        return self.relu(y + residual)
 
 
 class ResNet(nn.Module):
@@ -70,11 +71,16 @@ class ResNet(nn.Module):
 
     ``forward(x)`` returns logits; ``taps=True`` also returns
     {"layer1".."layer4": stage activations NCHW, "pool": pooled features}.
+    ``relu`` is the activation of the stem and of every block, the
+    counterpart of the flax model's ``relu`` field (:func:`set_relu`
+    swaps it, e.g. for guided backprop's rule).
     """
 
     def __init__(self, layers: Sequence[int], num_classes: int = 1000,
-                 groups: int = 1, width_per_group: int = 64):
+                 groups: int = 1, width_per_group: int = 64,
+                 relu: Callable = F.relu):
         super().__init__()
+        self.relu = relu
         self.conv1 = _conv(3, 64, 7, 2, 3)
         self.bn1 = FoldedBN(64)
         # JAX pads with -inf, then a VALID 3x3/2 max-pool: the same thing
@@ -88,7 +94,8 @@ class ResNet(nn.Module):
             for b in range(blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 stage_blocks.append(Bottleneck(in_features, width,
-                                               out_features, stride, groups))
+                                               out_features, stride, groups,
+                                               relu))
                 in_features = out_features
             setattr(self, f"layer{stage + 1}", nn.Sequential(*stage_blocks))
         self.fc = nn.Linear(in_features, num_classes)
@@ -98,7 +105,7 @@ class ResNet(nn.Module):
         the gradient with respect to a probe is the gradient with respect
         to that activation."""
         tap = {}
-        y = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        y = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for name in ("layer1", "layer2", "layer3", "layer4"):
             y = getattr(self, name)(y)
             if probes is not None and name in probes:
@@ -130,6 +137,15 @@ CLI_ARCH = {"R50": "resnet50", "R101": "resnet101", "R152": "resnet152",
 
 def make_model(arch: str, num_classes: int = 1000) -> ResNet:
     return ResNet(num_classes=num_classes, **ARCHS[arch])
+
+
+def set_relu(model: nn.Module, relu: Callable) -> nn.Module:
+    """Give the stem and every block of ``model`` the activation ``relu``
+    (in place), the counterpart of flax's ``model.clone(relu=...)``."""
+    for m in model.modules():
+        if isinstance(m, (ResNet, Bottleneck)):
+            m.relu = relu
+    return model
 
 
 @torch.no_grad()

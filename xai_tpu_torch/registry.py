@@ -1,9 +1,8 @@
 """Attribution registry keyed by the reference CLI names.
 
 Counterpart of ``xai_tpu/registry.py``.  Each entry maps a context to a
-``[H, W]`` numpy saliency.  This holds the CNN entries ported so far
-(the gradient family, IDG, IDGI, SmoothGrad and LIME); the rest of
-``xai_tpu``'s table arrives slice by slice (ROADMAP.md).
+``[H, W]`` numpy saliency.  This holds every CNN entry of xai_tpu's
+table; the ViT and CLIP tables arrive with their families (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,9 +12,16 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .methods import ablation as AB
 from .methods import gradient as G
+from .methods import guided as GD
+from .methods.agi import agi
+from .methods.gig import guided_ig
 from .methods.gradient import to_saliency
 from .methods.lime import lime
+from .methods.rise import rise
+from .methods.xrai import xrai
+from .ops.resize import resize_bilinear, resize_nearest_exact
 
 
 @dataclasses.dataclass
@@ -27,7 +33,7 @@ class AttrContext:
     img_hw: int = 224
     steps: int = 50
     # the counterpart of xai_tpu's per-image PRNG key, on the model's
-    # device; the stochastic methods (sg, lime) draw from it
+    # device; the stochastic methods (sg, gs, shap, rise, lime) draw from it
     generator: Optional[torch.Generator] = None
     # the low-precision sweep dtype (driver --attr_dtype), passed to the
     # entries whose methods take dtype= where xai_tpu passes it
@@ -38,6 +44,14 @@ def _abs_sum(fn):
     def wrapped(ctx):
         return to_saliency(fn(ctx))
     return wrapped
+
+
+def _down_up(attr_hwc: torch.Tensor, img_hw: int,
+             num_patches: int = 14) -> torch.Tensor:
+    """NEAREST_EXACT downsize to the patch grid + bilinear resize back."""
+    down = resize_nearest_exact(attr_hwc.permute(2, 0, 1),
+                                (num_patches, num_patches))
+    return resize_bilinear(down, (img_hw, img_hw)).permute(1, 2, 0)
 
 
 # --- CNN family (evaluatePerturbation.py:99-181) ---
@@ -52,9 +66,34 @@ CNN_METHODS: Dict[str, Callable] = {
     "idg": _abs_sum(lambda c: G.idg(c.bundle, c.x, c.target, c.steps, 0.0)),
     "idgi": _abs_sum(lambda c: G.idgi(c.bundle, c.x, c.target, c.steps,
                                       0.0)),
+    "gig": _abs_sum(lambda c: guided_ig(c.bundle, c.x, c.target,
+                                        steps=c.steps, fraction=0.5,
+                                        max_dist=1.0)),
+    "agi": lambda c: np.abs(agi(c.bundle, c.trans_img).cpu().numpy()),
     "sg": _abs_sum(lambda c: G.smooth_grad(c.bundle, c.x, c.target,
                                            _generator(c), "IG", c.steps,
                                            0.0, dtype=c.dtype)),
+    "gc": _abs_sum(lambda c: GD.grad_cam(c.bundle, c.x, c.target,
+                                         img_hw=c.img_hw)),
+    "gbp": _abs_sum(lambda c: GD.guided_backprop(c.bundle, c.x, c.target)),
+    "ggc": _abs_sum(lambda c: GD.guided_grad_cam(c.bundle, c.x, c.target,
+                                                 img_hw=c.img_hw)),
+    "gs": _abs_sum(lambda c: AB.gradient_shap(c.bundle, c.x, c.target,
+                                              _generator(c))),
+    # fa/occ: the driver post-processes with NEAREST_EXACT downsize to the
+    # 14x14 patch grid then bilinear resize back
+    # (evaluatePerturbation.py:171-176)
+    "fa": _abs_sum(lambda c: _down_up(
+        AB.feature_ablation(c.bundle, c.x, c.target), c.img_hw)),
+    "occ": _abs_sum(lambda c: _down_up(
+        AB.occlusion(c.bundle, c.x, c.target), c.img_hw)),
+    "shap": _abs_sum(lambda c: AB.shapley_sampling(c.bundle, c.x, c.target,
+                                                   _generator(c))),
+    "rise": lambda c: np.abs(rise(c.bundle, c.x, c.target,
+                                  _generator(c)).cpu().numpy()),
+    # xrai: segments from the normalized input, base attribution = IG
+    # (evaluatePerturbation.py:142-146)
+    "xrai": lambda c: np.abs(_xrai_entry(c)),
     # lime: the model runs on the UNNORMALIZED [0, 1] image, a reference
     # quirk (limeAttr.py:10-20 never applies the normalize transform); the
     # mask broadcast over 3 channels -> abs-sum = 3 * mask
@@ -66,6 +105,11 @@ def _generator(ctx) -> torch.Generator:
     if ctx.generator is None:
         raise ValueError("this attribution needs AttrContext.generator")
     return ctx.generator
+
+
+def _xrai_entry(ctx):
+    base = G.ig(ctx.bundle, ctx.x, ctx.target, ctx.steps, 1.0, 0.0)
+    return xrai(ctx.x.cpu().numpy(), base.cpu().numpy())
 
 
 def _lime_entry(ctx):

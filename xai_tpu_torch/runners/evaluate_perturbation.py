@@ -8,23 +8,28 @@ stream when no ImageNet directory is available.
 
 Each image gets its own ``torch.Generator`` on the model's device, seeded
 from ``(--seed, image index)``: the counterpart of xai_tpu's
-``fold_in(PRNGKey(seed), index)``.  Its draws (LIME's sample rows)
-differ from JAX's threefry draws by construction; the parity tests inject
-the same rows into both packages.
+``fold_in(PRNGKey(seed), index)``.  Its draws (LIME's sample rows,
+SmoothGrad's noise, GradientShap's baseline and alphas, Shapley's
+permutations, RISE's masks) differ from JAX's threefry draws by
+construction; the parity tests inject the same draws into both packages.
 
 Per-image flow (reference :520-599): sorted val stream -> correctly-
 classified filter -> sanity gates (blur/black predictions) -> class-balance
-quota -> attribution via the registry -> run_battery (3 reveal passes fed
-by the reveal kernel) -> accumulate -> CSV.  ``--image_batch N`` gathers
-N kept images and runs one batched attribution (``methods/batch.py``) and
-one batched battery (``parallel/sharded_battery.py``) for them; a partial
-last batch goes image by image with its stored targets.
+quota -> attribution via the registry (every CNN method of xai_tpu's
+table) -> run_battery (3 reveal passes fed by the reveal kernel) ->
+accumulate -> CSV.  ``--image_batch N`` gathers N kept images and runs
+one batched attribution (``methods/batch.py``) and one batched battery
+(``parallel/sharded_battery.py``) for them; rise and xrai, which have no
+batched form, attribute the batch's images one by one through the
+registry, and a partial last batch goes image by image with its stored
+targets.
 ``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
 model, on both paths.
 
 Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
---attr_func ig --synthetic 2 --image_count 2`` (or ``--attr_func lime``;
-add ``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
+--attr_func ig --synthetic 2 --image_count 2`` (or any other CNN name:
+lime, gig, agi, gc, gbp, ggc, gs, fa, occ, shap, rise, xrai; add
+``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations
 
