@@ -8,8 +8,10 @@ the CUDA toolkit:
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. the card's name and power limit (nvidia-smi); float32 stays float32
-   (TF32 off for cuDNN and cuBLAS);
+1. the card's name and power limit (nvidia-smi); which of PIL, h5py,
+   scikit-learn and matplotlib import (a phase that needs a missing one
+   is left to the CPU tests, and the line says so); float32 stays
+   float32 (TF32 off for cuDNN and cuBLAS);
 2. build every kernel in xai_tpu_torch/csrc with nvcc, all at once;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, heights and widths that are not
@@ -20,7 +22,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    empty torch.cuda._sleep(0)) and each kernel's bound
    (xai_tpu_torch/kernels/bounds.py); the quickshift cases cover both of
    its tiles at ragged heights, and w=18 on both; time its two phases
-   with torch.profiler;
+   with torch.profiler; the blur wider than its fused kernel (two
+   launches) at klen 65, 103, 161 and 449 on [3, 224, 224], and 103 on
+   [2, 203, 97] and [12, 224, 224], klen 103 timed beside its bound and
+   F.conv2d;
    the batched reveal (reveal_batch) is checked bit-exact at
    [4, 45, 3, 224, 224], at a ragged B=3, S=7 on 3x15x13 (the scalar
    variant) and at B=1 against reveal_chunk, and timed at B=4 beside
@@ -41,7 +46,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    scored image, or a flush of a batch) must launch blur once (>= once
    image by image), reveal 3 passes * ceil(225 / 45) chunks = 15 times,
    and quickshift once on a LIME path and never on another; a batched
-   path must score all its images in full batches;
+   path must score all its images in full batches; then the other
+   drivers on R101, each through its entry point with its launches:
+   sanity (ig, lime, ig at --image_batch 4 in bf16), segmentation (ig,
+   gc at --image_batch 4), --save_maps image by image and at B=4 (the
+   HDF5's maps are the scored ones; without h5py it must refuse), the
+   image finder against ground truth that makes its mask 1,0,1,0,...,
+   the 16-name qualitative panel (no failed name; the PNG where
+   matplotlib imports) and the sweep (6 rows ok, each pert row blur 1
+   and reveal 15 a scored image); sanity LIME's SPR and HOG may be NaN
+   only where a map is constant, as xai_tpu's evaluate gives them;
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
@@ -54,13 +68,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the rest of the family (gs and shap with injected draws) and rise with
    injected masks, within 1e-4 relative in float32 (gig or agi, where a
    discrete choice falls the other way on the card in float32, is named,
-   and held within 1e-4 on the model's float64 copy instead);
+   and held within 1e-4 on the model's float64 copy; float32 agi is
+   held up to its first flipped choice: each flip a rounding-level tie,
+   and AGI run for that many iterations within 1e-4 on both devices);
+   TINY_R's sanity CSV and seg TXT (ig, gc) within 2e-3 of the CPU's,
+   the randomized weights bit-equal;
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
    attribution of R101, LIME split by stage with CUDA events; then R101 at
    B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
    the batched battery, per image, with CUDA events; then each of the
    rest of the family warm on R101, image by image and at B=4 (shap in
-   bf16 too), with CUDA events and peak memory.
+   bf16 too), with CUDA events and peak memory; sanity-ig and seg-ig per
+   image, split into attribution and host metrics, and the image
+   finder's images a second at --batch_size 100.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -188,6 +208,27 @@ def check_kernels(torch, dev, x_hwc):
           + ", ".join(f"{list(t.shape)} klen {k}" for t, k, _ in cases))
     if not err < BLUR_TOL:
         fail(f"blur kernel disagrees with its plain version: {err}")
+    # wider than the fused kernel's instantiations (MDA grows klen to
+    # 103, nsig with it): the two-launch path, up to klen 449, wider than
+    # twice a 224-px plane
+    planes_r = torch.randn(2, 203, 97, device=dev, generator=gen)
+    wide = [(planes, k) for k in (65, 103, 161, 449)] + [
+        (planes_r, 103), (planes12, 103)]
+    for t, klen in wide:
+        before = kblur.blur_planes.launches
+        got = kblur.blur_planes(t, klen, float(klen))
+        if kblur.blur_planes.launches - before != 2:
+            fail(f"blur klen {klen} launched "
+                 f"{kblur.blur_planes.launches - before} kernels, not 2")
+        want = kblur.blur_planes_plain(t, klen, float(klen))
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        print(f"blur_planes {list(t.shape)} klen {klen} (two launches): "
+              f"max |kernel - plain| = {e:.3g}")
+        if not (e < BLUR_TOL and bool(torch.isfinite(got).all())):
+            fail(f"blur kernel at klen {klen} disagrees with its plain "
+                 f"version: {e}")
+        err = max(err, e)
     weight = torch.as_tensor(gkern(31, 31.0), device=dev).expand(
         3, 1, 31, 31).contiguous()
     n, h, w = planes.shape
@@ -208,6 +249,23 @@ def check_kernels(torch, dev, x_hwc):
         launch_floor_ms=floor_ms))
     print(f"per-launch floor (torch.cuda._sleep(0)): {floor_ms * 1e3:.2f} "
           f"us; blur [12, 224, 224]: {rows[-1]['ms_n12'] * 1e3:.2f} us")
+    weight103 = torch.as_tensor(gkern(103, 103.0), device=dev).expand(
+        3, 1, 103, 103).contiguous()
+    row = rows[-1]
+    row.update(
+        ms_k103=device_ms(torch, lambda: kblur.blur_planes(planes, 103,
+                                                           103.0)),
+        plain_ms_k103=device_ms(torch, lambda: kblur.blur_planes_plain(
+            planes, 103, 103.0)),
+        library_ms_k103=device_ms(torch, lambda: F.conv2d(
+            planes[None], weight103, padding=51, groups=3)),
+        bound_ms_k103=blur_bound_ms(n, h, w, 103)[0],
+        bound_by_k103=blur_bound_ms(n, h, w, 103)[1])
+    print(f"blur [3, 224, 224] klen 103 (two launches): kernel "
+          f"{row['ms_k103'] * 1e3:.2f} us, plain "
+          f"{row['plain_ms_k103'] * 1e3:.2f} us, F.conv2d depthwise "
+          f"{row['library_ms_k103'] * 1e3:.2f} us, bound "
+          f"{row['bound_ms_k103'] * 1e3:.3f} us ({row['bound_by_k103']})")
 
     # --- reveal: one image (reveal_chunk, the B = 1 view): S=45 at 224 px
     # (the per-image path), ragged S=1, and a plane size that is not a
@@ -457,7 +515,7 @@ def synthetic_classes(torch, dev, n: int) -> list:
     with torch.no_grad():
         classes = bundle.apply(xs.permute(0, 3, 1, 2)).argmax(-1).tolist()
     print(f"R101 classes of the {n} synthetic images: {classes}")
-    if 0 in classes:
+    if 0 in classes[:4]:        # the AGI paths score at most 4 of them
         fail("a synthetic image is class 0, the only class AGI attacks at "
              "topk=1: its AGI map would be NaN; choose another seed")
     return classes
@@ -857,8 +915,8 @@ def agi_choices(torch, bundle, x01, target: int = 0, max_iter: int = 20,
                 epsilon: float = 0.05) -> list:
     """The discrete choices of AGI's attack toward ``target`` (the loop
     of xai_tpu_torch/methods/agi.py _agi_attack), iteration by iteration:
-    each image's argmax, the sign of the gradient toward the target, and
-    that gradient's magnitude."""
+    each image's argmax and probabilities, the sign of the gradient toward
+    the target, and that gradient's magnitude."""
     from xai_tpu_torch.methods.agi import _norm_apply
 
     pert = x01
@@ -873,28 +931,76 @@ def agi_choices(torch, bundle, x01, target: int = 0, max_iter: int = 20,
         new = torch.clamp(x01 + epsilon * torch.sign(g), 0.0, 1.0)
         pert = torch.where(~(done | newly)[:, None, None, None], new, pert)
         out.append((probs.detach().argmax(-1).cpu(), torch.sign(g).cpu(),
-                    g.abs().cpu()))
+                    g.abs().cpu(), probs.detach().cpu()))
         done = done | newly
         if bool(done.all()):
             break
     return out
 
 
-def first_agi_choice(card: list, cpu: list) -> str:
-    """The first iteration at which the card's choices differ from the
-    CPU's, and which choice."""
-    for it, ((p1, s1, g1), (p2, s2, g2)) in enumerate(zip(card, cpu)):
+# a flipped choice is a rounding-level tie when the CPU's gradient at each
+# flipped pixel (or the gap between the two classes of a flipped argmax)
+# is at most this share of its image's largest
+AGI_TIE = 1e-2
+
+
+def first_agi_choice(card: list, cpu: list):
+    """The first iteration k at which the card's choices differ from the
+    CPU's: (k, what differs, the flipped choices' largest share of their
+    image's largest gradient or probability), or (None, ..., None) when
+    none differs."""
+    for it, ((p1, s1, g1, q1), (p2, s2, g2, q2)) in enumerate(zip(card,
+                                                                   cpu)):
         if not bool((p1 == p2).all()):
-            return (f"iteration {it}: argmax on the card {p1.tolist()}, on "
-                    f"the CPU {p2.tolist()}")
+            rows = (p1 != p2).nonzero().flatten().tolist()
+            tie = max(float((q2[i, p2[i]] - q2[i, p1[i]]) / q2[i, p2[i]])
+                      for i in rows)
+            return it, (f"iteration {it}: argmax on the card "
+                        f"{p1.tolist()}, on the CPU {p2.tolist()}, "
+                        f"probability gap <= {tie:.2e} of the top"), tie
         flip = s1 != s2
         if bool(flip.any()):
-            rel = float((g2[flip] / g2.flatten(1).amax(1).view(-1, 1, 1, 1)
+            tie = float((g2[flip] / g2.flatten(1).amax(1).view(-1, 1, 1, 1)
                          .expand_as(g2)[flip]).max())
-            return (f"iteration {it}: the sign of the gradient toward the "
-                    f"attacked class differs at {int(flip.sum())} pixels, "
-                    f"each |gradient| <= {rel:.2e} of its image's largest")
-    return f"none in the {min(len(card), len(cpu))} iterations compared"
+            return it, (f"iteration {it}: the sign of the gradient toward "
+                        f"the attacked class differs at {int(flip.sum())} "
+                        f"pixels, each |gradient| <= {tie:.2e} of its "
+                        f"image's largest"), tie
+    return None, (f"none in the {min(len(card), len(cpu))} iterations "
+                  f"compared"), None
+
+
+def check_agi_float32(torch, runs, imgs, err: float) -> list:
+    """C2: float32 AGI on the card against the CPU, up to the first
+    iteration k whose choice differs: every flipped choice must be a
+    rounding-level tie (AGI_TIE), and the maps of AGI run for k
+    iterations on both devices (methods/agi.py max_iter) must agree
+    within A8_REL_TOL.  Returns the failures."""
+    import numpy as np
+
+    from xai_tpu_torch.methods.agi import agi_batch
+
+    k, choice, tie = first_agi_choice(
+        *(agi_choices(torch, r["bundle"], r["x01"]) for r in runs))
+    if k is None:
+        return [f"agi: float32 rel err {err} though no choice differs"]
+    failures = []
+    if not tie <= AGI_TIE:
+        failures.append(f"agi: a flipped choice is no rounding-level tie "
+                        f"({tie:.3g} > {AGI_TIE}): {choice}")
+    line = f"agi float32, card vs CPU: first differing choice at {choice}"
+    if k > 0:
+        maps = [agi_batch(r["bundle"], imgs, max_iter=k).abs().cpu().numpy()
+                for r in runs]
+        err_k = _rel_err(*maps)
+        line += (f"; run for those {k} iterations on both devices, rel err "
+                 f"{err_k:.3g} (< {A8_REL_TOL})")
+        if not (err_k < A8_REL_TOL and all(np.isfinite(m).all()
+                                           for m in maps)):
+            failures.append(f"agi: float32 maps at max_iter={k} differ "
+                            f"card vs CPU: {err_k}")
+    print(line)
+    return failures
 
 
 def check_a8_reference(torch, dev):
@@ -918,8 +1024,9 @@ def check_a8_reference(torch, dev):
     falls the other way, and the path after it differs.  Where that
     happens in float32, the check names the choice and prints the
     float32 error and Spearman rho, and holds the method card vs CPU on
-    the bundle's float64 copy within 1e-4 instead, where no choice can
-    fall the other way on rounding."""
+    the bundle's float64 copy within 1e-4, where no choice can fall the
+    other way on rounding.  Float32 agi, the driver's, is held besides up
+    to its first flipped choice (check_agi_float32)."""
     import numpy as np
 
     from xai_tpu_torch.methods import ablation as AB
@@ -985,8 +1092,8 @@ def check_a8_reference(torch, dev):
             continue
         rho = min(spearman_np(g, c) for g, c in zip(got, want))
         if m == "agi":
-            choice = first_agi_choice(
-                *(agi_choices(torch, r["bundle"], r["x01"]) for r in runs))
+            failures += check_agi_float32(torch, runs, imgs, err)
+            choice = "above"
         else:
             choice = (f"{int((got != want).sum())} of {got.size} pixels "
                       f"differ (which features a step moves: those below "
@@ -1006,6 +1113,430 @@ def check_a8_reference(torch, dev):
     print(f"TINY_R 32 px, B=3 (classes {cpu['targets']}), the rest of the "
           f"CNN family card vs CPU, rel err (< {A8_REL_TOL}; float32 unless "
           f"noted): " + ", ".join(f"{m} {e}" for m, e in report.items()))
+
+
+# packages the port needs only on some paths, and the machine with the
+# card need not have: h5py (--save_maps), matplotlib (the qualitative
+# grid's PNG); PIL and scikit-learn for the record (the port reads no
+# image file here, and never imports scikit-learn)
+OPTIONAL_PACKAGES = ("PIL", "h5py", "sklearn", "matplotlib")
+
+
+def optional_packages() -> dict:
+    """Which optional packages import here; prints one line."""
+    import importlib.util
+
+    have = {n: importlib.util.find_spec(n) is not None
+            for n in OPTIONAL_PACKAGES}
+    skipped = [f"{what} (needs {n})" for n, what in
+               (("h5py", "the --save_maps paths"),
+                ("matplotlib", "the qualitative grid's PNG"))
+               if not have[n]]
+    print("optional packages: " + ", ".join(
+        f"{n} {'imports' if ok else 'missing'}" for n, ok in have.items())
+        + ("; covered by the CPU tests only: " + ", ".join(skipped)
+           if skipped else "; every driven phase runs"))
+    return have
+
+
+NO_LAUNCHES = {"blur_planes": 0, "reveal_batch": 0, "quickshift_parents": 0}
+
+
+def run_path(torch, label, fn, want: dict):
+    """Drive one path, every kernel counter zeroed just before and read
+    just after; fails unless each kernel launched as ``want`` says.
+    Returns (fn's result, the launches)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = fn()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    print(log.getvalue(), end="")
+    if launches != want:
+        fail(f"the {label} path launched {launches}, expected {want}")
+    print(f"{label} path: {total:.3f} s, launches {json.dumps(launches)}")
+    return result, launches
+
+
+def _finite_scores(label, scores: dict, keys) -> None:
+    print(f"{label} scores:", json.dumps(scores))
+    if list(scores) != list(keys) or not all(math.isfinite(v)
+                                             for v in scores.values()):
+        fail(f"{label}: expected finite {list(keys)}, got {scores}")
+
+
+def _read_sanity_csv(path) -> dict:
+    with open(path) as f:
+        rows = {r[0]: float(r[1]) for r in csv.reader(f) if r}
+    del rows["Total Runtime"]
+    return rows
+
+
+def _read_seg_txt(path) -> dict:
+    """The seg driver's TXT as {line label: number} (pixel accuracy in
+    percent, as written)."""
+    with open(path) as f:
+        return {line.split(":")[0]: float(line.split(":")[1].strip(" %\n"))
+                for line in f}
+
+
+SANITY_KEYS = ("SSIM", "SPR", "HOG")
+SEG_LINES = ("Mean IoU over 2 classes", "Pixel-wise Accuracy",
+             "Mean AP over 2 classes", "Mean F1 over 2 classes")
+
+
+def check_constant_lime(scores: dict, maps: list) -> None:
+    """The sanity driver's LIME scores on R101.  The randomized model
+    (every convolution redrawn, the folded batch norms left) puts its
+    logits in the millions: every LIME sample's softmax is one-hot at the
+    same class, the ridge finds no positive segment and the map is
+    constant.  xai_tpu's ``evaluate`` then gives SSIM on its zeroed map
+    but NaN Spearman and HOG Spearman (the Spearman of a constant
+    vector), and so does the port.  SSIM must be finite; SPR and HOG are
+    NaN exactly where an image has a constant map, else finite."""
+    import numpy as np
+
+    pairs = list(zip(maps[0::2], maps[1::2]))      # (trained, randomized)
+    constant = [float(np.ptp(a)) == 0 or float(np.ptp(b)) == 0
+                for a, b in pairs]
+    print("sanity_lime scores:", json.dumps(scores))
+    nan = [k for k, v in scores.items() if not math.isfinite(v)]
+    want = ["SPR", "HOG"] if any(constant) else []
+    if list(scores) != list(SANITY_KEYS) or nan != want or len(pairs) != 2:
+        fail(f"sanity_lime: scores {scores}, constant maps {constant}")
+    print(f"sanity_lime: {sum(constant)} of {len(pairs)} images have a "
+          f"constant map (randomized model: "
+          f"{[float(np.ptp(b)) == 0 for _, b in pairs]}; trained model: "
+          f"{[float(np.ptp(a)) == 0 for a, _ in pairs]}); SSIM finite, "
+          f"SPR and HOG {'NaN, as xai_tpu gives them' if want else 'finite'}")
+
+
+def check_saved_maps(torch, dev, out_dir, label, flags, n_images, count,
+                     batch):
+    """--save_maps on the flagship driver: the HDF5 holds one map a scored
+    image, equal to the map the battery scored."""
+    import h5py
+    import numpy as np
+
+    from xai_tpu_torch.runners import evaluate_perturbation as ep
+
+    scored = []
+    battery, sharded = ep.run_battery, ep.sharded_battery_scores
+
+    def spy_battery(apply, x, saliency, *args, **kwargs):
+        scored.append(np.array(saliency))
+        return battery(apply, x, saliency, *args, **kwargs)
+
+    def spy_sharded(bundle, xs, sals, *args, **kwargs):
+        scored.extend(np.array(s) for s in sals)
+        return sharded(bundle, xs, sals, *args, **kwargs)
+
+    ep.run_battery, ep.sharded_battery_scores = spy_battery, spy_sharded
+    try:
+        launches = run_main_path(torch, dev, out_dir, label,
+                                 flags + ["--save_maps"], n_images, count,
+                                 batch)
+    finally:
+        ep.run_battery, ep.sharded_battery_scores = battery, sharded
+    with h5py.File(os.path.join(out_dir, label, "R101_ig_maps.h5")) as f:
+        saved = [(n, np.asarray(d), dict(d.attrs))
+                 for n, d in sorted(f["maps"].items())]
+    ok = len(saved) == len(scored) > 0 and all(
+        np.array_equal(m, s) and set(a) == {"target", "original_pred"}
+        for (_, m, a), s in zip(saved, scored))
+    if not ok:
+        fail(f"{label}: the HDF5 holds {len(saved)} maps for {len(scored)} "
+             f"scored images, or a map differs from the one scored")
+    print(f"{label}: the HDF5 holds one map a scored image "
+          f"({len(saved)}), each equal to the map the battery scored")
+    return launches
+
+
+def drive_driver_paths(torch, dev, out_dir, classes, have) -> dict:
+    """Phase 4, the other drivers on R101 at 224 px: sanity (ig, lime, ig
+    batched in bf16), segmentation (ig, gc batched), the flagship's
+    --save_maps image by image and batched, the image finder, the
+    qualitative panel and the sweep; each through its entry point, with
+    its launches.  Returns the launches by path."""
+    import numpy as np
+
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners import image_finder as fi
+    from xai_tpu_torch.runners import qualitative_generation as qg
+    from xai_tpu_torch.runners import sweep as sw
+
+    by_path = {}
+    for label, flags, qs in (
+            ("sanity_ig", ["--attr_func", "ig", "--synthetic", "2",
+                           "--image_count", "2"], 0),
+            # LIME segments each image once a weight set
+            ("sanity_lime", ["--attr_func", "lime", "--synthetic", "2",
+                             "--image_count", "2"], 4),
+            ("sanity_ig_b4_bf16", ["--attr_func", "ig", "--image_batch",
+                                   "4", "--synthetic", "4", "--image_count",
+                                   "4000", "--attr_dtype", "bf16"], 0)):
+        d = os.path.join(out_dir, label)
+        args = es.build_parser().parse_args(
+            ["--model", "R101", *flags, "--output_dir", d])
+        maps = []
+        attribution = es.get_attribution
+
+        def spy(*a, **k):
+            maps.append(np.asarray(attribution(*a, **k)))
+            return maps[-1]
+
+        es.get_attribution = spy       # the per-image path's maps
+        try:
+            _, by_path[label] = run_path(
+                torch, label, lambda: es.evaluate_sanity(args, device=dev),
+                dict(NO_LAUNCHES, quickshift_parents=qs))
+        finally:
+            es.get_attribution = attribution
+        scores = _read_sanity_csv(os.path.join(
+            d, "R101", f"{args.attr_func}_{args.image_count}_images.csv"))
+        if label == "sanity_lime":
+            check_constant_lime(scores, maps)
+        else:
+            _finite_scores(label, scores, SANITY_KEYS)
+    for label, flags in (
+            ("seg_ig", ["--attr_func", "ig", "--synthetic", "2"]),
+            ("seg_gc_b4", ["--attr_func", "gc", "--image_batch", "4",
+                           "--synthetic", "4"])):
+        d = os.path.join(out_dir, label)
+        args = eg.build_parser().parse_args(
+            ["--model", "R101", *flags, "--output_dir", d])
+        _, by_path[label] = run_path(
+            torch, label, lambda: eg.evaluate_imagenet_seg(args, device=dev),
+            NO_LAUNCHES)
+        _finite_scores(label, _read_seg_txt(os.path.join(
+            d, "R101", f"{args.attr_func}_0_images")), SEG_LINES)
+
+    if have["h5py"]:
+        for label, batch, n, count in (("ig_save_maps", 1, 2, 2),
+                                       ("ig_b4_save_maps", 4, 4, 4000)):
+            by_path[label] = check_saved_maps(
+                torch, dev, out_dir, label, ["--attr_func", "ig"], n, count,
+                batch)
+    else:
+        # without h5py --save_maps must refuse before any work, never
+        # write nothing silently
+        from xai_tpu_torch.runners import evaluate_perturbation as ep
+
+        d = os.path.join(out_dir, "save_maps_without_h5py")
+        args = ep.build_parser().parse_args(
+            ["--model", "R101", "--synthetic", "1", "--image_count", "1",
+             "--save_maps", "--output_dir", d])
+        try:
+            ep.evaluate_perturbation(args, device=dev)
+            fail("--save_maps ran without h5py")
+        except ImportError as e:
+            if "h5py" not in str(e) or os.path.exists(d):
+                fail(f"--save_maps without h5py: {e}")
+            print(f"--save_maps without h5py raises before any work: {e}")
+
+    # the image finder, against ground truth that names the model's own
+    # class at even indices and another at odd ones
+    gt = os.path.join(out_dir, "ground_truth.txt")
+    with open(gt, "w") as f:
+        f.writelines(f"{c if i % 2 == 0 else (c + 1) % 1000}\n"
+                     for i, c in enumerate(classes))
+    args = fi.build_parser().parse_args(
+        ["--model", "R101", "--synthetic", str(len(classes)),
+         "--batch_size", "4", "--ground_truth", gt, "--class_maps_dir",
+         os.path.join(out_dir, "class_maps")])
+    mask, by_path["image_finder"] = run_path(
+        torch, "image_finder",
+        lambda: fi.find_correctly_classified(args, device=dev), NO_LAUNCHES)
+    on_disk = np.loadtxt(os.path.join(
+        out_dir, "class_maps", "correctly_classified_R101.txt")).tolist()
+    want = [1, 0] * (len(classes) // 2)
+    if mask.tolist() != want or on_disk != want:
+        fail(f"image_finder mask {mask.tolist()} (file {on_disk}), "
+             f"expected {want}")
+    print(f"image_finder: mask {mask.tolist()} as constructed")
+
+    # the qualitative panel: every CNN name on one image, LIME's
+    # quickshift once; the grid's PNG where matplotlib imports
+    panels = []
+    panel_maps = qg.panel_maps
+
+    def spy(*a, **k):
+        panels.append(panel_maps(*a, **k))
+        return panels[-1]
+
+    qg.panel_maps = spy
+    try:
+        if have["matplotlib"]:
+            args = qg.build_parser().parse_args(
+                ["--model", "R101", "--synthetic", "1", "--output_dir",
+                 os.path.join(out_dir, "qualitative")])
+            written, by_path["qualitative"] = run_path(
+                torch, "qualitative", lambda: qg.generate(args, device=dev),
+                dict(NO_LAUNCHES, quickshift_parents=1))
+            if list(written.values()) != [[]] or not all(
+                    os.path.getsize(p) > 0 for p in written):
+                fail(f"qualitative grid: {written}")
+        else:
+            from xai_tpu_torch.data.imagenet import ImageNetValStream
+            from xai_tpu_torch.runners.common import build_bundle
+
+            bundle = build_bundle("R101", device=dev)
+            item = next(iter(ImageNetValStream("", 224, synthetic=1)))
+            _, by_path["qualitative"] = run_path(
+                torch, "qualitative", lambda: qg.panel_maps(
+                    bundle, item, qg.CNN_PANEL, 0, dev),
+                dict(NO_LAUNCHES, quickshift_parents=1))
+    finally:
+        qg.panel_maps = panel_maps
+    maps, failed = panels[0]
+    if failed or sorted(maps) != sorted(qg.CNN_PANEL) or not all(
+            np.isfinite(m).all() and m.shape == (224, 224)
+            for m in maps.values()):
+        fail(f"qualitative panel: failed {failed}, maps {sorted(maps)}")
+    print(f"qualitative: {len(maps)} of the {len(qg.CNN_PANEL)} CNN panel "
+          f"maps, finite, none failed"
+          + ("; grid written" if have["matplotlib"] else ""))
+
+    # the sweep: 6 runs; each pert run scores one image a class (the
+    # quota at --image_count 2) and launches blur once and reveal 15 times
+    # a scored image
+    d = os.path.join(out_dir, "sweep")
+    args = sw.build_parser().parse_args(
+        ["--drivers", "pert,sanity,seg", "--models", "R101", "--methods",
+         "ig,gc", "--synthetic", "2", "--image_count", "2", "--output_dir",
+         d])
+    scored = 2 * len(set(classes[:2]))
+    records, by_path["sweep"] = run_path(
+        torch, "sweep", lambda: sw.run_sweep(args, device=dev),
+        dict(NO_LAUNCHES, blur_planes=scored,
+             reveal_batch=REVEAL_PER_BATTERY * scored))
+    with open(os.path.join(d, "sweep_manifest.jsonl")) as f:
+        manifest = [json.loads(line) for line in f]
+    if len(manifest) != 6 or records != manifest or not all(
+            r["status"] == "ok" and all(math.isfinite(v) for v in
+                                        r["scores"].values())
+            for r in manifest):
+        fail(f"sweep manifest: {manifest}")
+    print("sweep: 6 manifest rows, all ok: " + ", ".join(
+        f"{r['driver']}/{r['attr_func']} {r['seconds']} s" for r in manifest))
+    return by_path
+
+
+def check_tiny_drivers(torch, dev):
+    """Phase 5, the other drivers: TINY_R at 64 px on the card against the
+    CPU: the sanity driver's randomized weights bit-equal, the sanity
+    CSV and the segmentation TXT of ig and gc within the driver CSV
+    tolerance, 2e-3."""
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners.common import build_bundle
+
+    cpu = torch.device("cpu")
+    weights = [{k: v.cpu() for k, v in es.randomize_family(
+        build_bundle("TINY_R", device=d), "cnn",
+        torch.Generator().manual_seed(1)).module.state_dict().items()}
+        for d in (dev, cpu)]
+    if not all(torch.equal(weights[0][k], weights[1][k])
+               for k in weights[1]):
+        fail("the sanity driver's randomized weights differ card vs CPU")
+    report = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name in ("ig", "gc"):
+            for drv, fn, parser in (
+                    ("sanity", es.evaluate_sanity, es.build_parser),
+                    ("seg", eg.evaluate_imagenet_seg, eg.build_parser)):
+                flags = ["--model", "TINY_R", "--attr_func", name,
+                         "--synthetic", "3", "--output_dir", out_dir]
+                if drv == "sanity":
+                    flags += ["--image_count", "3"]
+                got, want = (fn(parser().parse_args(flags), device=d)
+                             for d in (dev, cpu))
+                worst = max(abs(got[k] - want[k]) for k in want)
+                report.append(f"{drv} {name} {worst:.3g}")
+                if not (worst < 2e-3 and all(math.isfinite(v)
+                                             for v in got.values())):
+                    fail(f"TINY_R {drv} {name} on the card differs from "
+                         f"the CPU: {got} vs {want}")
+    print("TINY_R 64 px, the other drivers card vs CPU: randomized weights "
+          "bit-equal; max |score delta| (< 2e-3): " + ", ".join(report))
+
+
+def time_warm_drivers(torch, dev, card, bundle):
+    """Phase 6, the other drivers on R101, warm: sanity-ig per image (its
+    two IG-50 attributions with CUDA events, the host SSIM / Spearman /
+    HOG), seg-ig per image (attribution, host metrics), and the image
+    finder's images a second at --batch_size 100 (the driver end to end,
+    and its batched forward alone)."""
+    import numpy as np
+
+    from xai_tpu_torch.data.segmentation import ImagenetSegmentation
+    from xai_tpu_torch.metrics.sanity import evaluate as sanity_evaluate
+    from xai_tpu_torch.metrics.seg import eval_batch
+    from xai_tpu_torch.registry import get_attribution
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners import image_finder as fi
+    from xai_tpu_torch.runners.common import (attr_context, build_bundle,
+                                              normalize_input,
+                                              predict_classes)
+
+    rand = es.randomize_family(bundle, "cnn",
+                               torch.Generator().manual_seed(1))
+    item = next(iter(ImagenetSegmentation("", 224, synthetic=1)))
+    x = normalize_input(item.trans_img, "cnn", dev)
+
+    def ig(b):
+        p = {"x": x, "trans_img": item.trans_img, "generator": None,
+             "target": predict_classes(b, x[None])[0]}
+        return get_attribution("cnn", "ig", attr_context(b, p))
+
+    for _ in range(2):                      # the first round warms up
+        a, t_a = _event_s(torch, lambda: ig(bundle))
+        ar, t_r = _event_s(torch, lambda: ig(rand))
+        t0 = time.perf_counter()
+        sanity_evaluate(a, ar)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_batch(a, item.gt_mask)
+        t_seg = time.perf_counter() - t0
+    print(f"R101 warm sanity-ig: {t_a + t_r + t_host:.4f} s/image = IG-50 "
+          f"trained {t_a:.4f} + IG-50 randomized {t_r:.4f} (CUDA events) + "
+          f"host SSIM/Spearman/HOG {t_host:.4f}; seg-ig: "
+          f"{t_a + t_seg:.4f} s/image = IG-50 {t_a:.4f} + host metrics "
+          f"{t_seg:.4f} on {card}")
+
+    n = 500
+    with tempfile.TemporaryDirectory() as d:
+        gt = os.path.join(d, "gt.txt")
+        with open(gt, "w") as f:
+            f.write("1\n" * n)
+        args = fi.build_parser().parse_args(
+            ["--model", "R101", "--synthetic", str(n), "--batch_size", "100",
+             "--ground_truth", gt, "--class_maps_dir", d])
+        for _ in range(2):                  # the first round warms up
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fi.find_correctly_classified(args, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_bundle("R101", device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    xs = torch.as_tensor(np.random.RandomState(1).rand(100, 224, 224, 3),
+                         dtype=torch.float32, device=dev)
+    for _ in range(2):
+        _, t_fwd = _event_s(torch, lambda: predict_classes(bundle, xs))
+    print(f"R101 warm image_finder at --batch_size 100: "
+          f"{n / (wall - t_build):.1f} images/s end to end ({n} synthetic "
+          f"images in {wall:.3f} s, of it {t_build:.3f} s building the "
+          f"bundle); the batched forward alone {100 / t_fwd:.1f} images/s "
+          f"({t_fwd * 1e3:.2f} ms a batch of 100, CUDA events) on {card}")
 
 
 def time_warm_a8(torch, dev, card, bundle):
@@ -1112,6 +1643,7 @@ def main() -> None:
 
     card = card_line()
     print(card)                     # as nvidia-smi prints it
+    have = optional_packages()
     dev = resolve_device("cuda:0")          # also turns TF32 off
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -1131,17 +1663,21 @@ def main() -> None:
     rows = check_kernels(torch, dev, x_hwc)
     rows.append(check_quickshift(torch, dev))
 
-    synthetic_classes(torch, dev, 4)
+    classes = synthetic_classes(torch, dev, 8)
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
         for label, *path in MAIN_PATHS:
             by_path[label] = run_main_path(torch, dev, out_dir, label, *path)
+        by_path.update(drive_driver_paths(torch, dev, out_dir, classes,
+                                          have))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)
+    check_tiny_drivers(torch, dev)
     bundle, per_image = time_warm_image(torch, dev, card)
     time_warm_batch(torch, dev, card, bundle, per_image)
     time_warm_a8(torch, dev, card, bundle)
+    time_warm_drivers(torch, dev, card, bundle)
 
     for row in rows:
         name = row["name"]

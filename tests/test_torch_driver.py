@@ -252,7 +252,7 @@ def test_batched_driver_equals_per_image(tmp_path, params_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--shard_images"], ["--save_maps"], ["--profile_dir", "trace"]],
+    ["--shard_images"], ["--profile_dir", "trace"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(tmp_path, params_path, flag):
     args = TD.build_parser().parse_args(

@@ -144,6 +144,25 @@ def test_resize_bilinear_matches_xai_tpu(shape, hw):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape,hw", [((2, 2), (64, 64)),
+                                      ((3, 7, 7), (224, 224))])
+def test_resize_bilinear_keeps_xai_tpus_plateaus(shape, hw):
+    """Where an output lies outside the input's first or last pixel
+    centre, xai_tpu's resize copies that pixel exactly: the upsampled
+    map has exact plateaus at its borders (Grad-CAM's, for one).  The
+    port's has the same ones, bit-exact: the sanity driver's HOG bins a
+    zero gradient and a last-bit one apart."""
+    x = np.random.RandomState(6).rand(*shape).astype(np.float32)
+    ref = np.asarray(JR.resize_bilinear(jnp.asarray(x), hw))
+    got = TR.resize_bilinear(torch.from_numpy(x), hw).numpy()
+    for axis in (-1, -2):
+        flat_ref = np.diff(ref, axis=axis) == 0
+        assert flat_ref.sum() > 0
+        assert np.array_equal(np.diff(got, axis=axis) == 0, flat_ref)
+    np.testing.assert_array_equal(got[flat_ref.nonzero()],
+                                  ref[flat_ref.nonzero()])
+
+
 @pytest.mark.parametrize("shape,hw", [((3, 64, 64), (14, 14)),
                                       ((3, 224, 224), (14, 14)),
                                       ((2, 2), (64, 64)),

@@ -27,13 +27,34 @@ bad = sorted(k for k in sys.modules
 assert not bad, bad
 for m in ("runners.evaluate_perturbation", "ops.resize", "methods.guided",
           "methods.ablation", "methods.rise", "methods.adversarial",
-          "methods.agi", "methods.gig", "methods.xrai", "native"):
+          "methods.agi", "methods.gig", "methods.xrai", "native",
+          "metrics.sanity", "metrics.seg", "data.segmentation", "data.voc",
+          "runners.evaluate_sanity", "runners.evaluate_imagenet_seg",
+          "runners.image_finder", "runners.qualitative_generation",
+          "runners.sweep", "utils.visualization", "utils.render",
+          "utils.saver"):
     assert "xai_tpu_torch." + m in names, (m, names)
 # the native segmenter compiles the port's own copy of its source
 import xai_tpu_torch.native as native
 assert native.SOURCE.parent == native.HERE
 assert native.HERE.parent.name == "xai_tpu_torch", native.HERE
 print(len(names))
+"""
+
+
+# the packages the card's machine need not have: blocked, every port
+# module still imports, and none of them is imported on the way
+_IMPORT_WITHOUT = r"""
+import importlib, pkgutil, sys
+BLOCKED = ("sklearn", "h5py", "matplotlib")
+for name in BLOCKED:
+    sys.modules[name] = None
+import xai_tpu_torch
+for m in pkgutil.walk_packages(xai_tpu_torch.__path__, "xai_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+assert all(sys.modules[name] is None for name in BLOCKED)
+print("ok")
 """
 
 
@@ -46,7 +67,13 @@ def _run(args, cwd, timeout=120):
 def test_port_imports_no_jax_and_no_xai_tpu():
     r = _run(["-c", _IMPORT_ALL], REPO)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 35        # every module was imported
+    assert int(r.stdout.strip()) >= 48        # every module was imported
+
+
+def test_port_imports_without_sklearn_h5py_matplotlib():
+    r = _run(["-c", _IMPORT_WITHOUT], REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

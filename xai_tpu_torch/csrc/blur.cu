@@ -37,9 +37,22 @@
 //   thread RC outputs down one column the same way; a warp spans 32
 //   neighbouring columns, so its stores to device memory are coalesced.
 //
+// Wider kernels (klen > MAX_KLEN: MDA grows klen from 31 up to 103, and
+// any odd klen is taken) would not fit this tile: at klen 103 the tile
+// and its halo take 95.4 KB of shared memory and each register window
+// ~110 floats, and at klen ~189 the tile passes the 227 KB a block can
+// have.  They take two launches of blur_pass instead, a row pass into a
+// scratch plane and a column pass out of it, one output a thread with
+// klen a run-time value and the taps in device memory.  A thread sums
+// only the taps that land inside the plane, so a klen wider than twice
+// the plane costs no more than twice the plane, and neither pass needs a
+// halo in shared memory: a warp's reads at each tap are 32 neighbouring
+// floats (the row pass: the same line shifted by one, from L1).
+//
 // Numerics: the contract is max |delta| < 1e-5 against the dense conv of
 // gkern, which allows any summation order; each output sums its klen
-// products in tap order with fmaf.
+// products in tap order with fmaf (blur_pass leaves out the products
+// with the zero padding, which add exact zeros).
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,7 +62,8 @@ constexpr int TH = 40;        // output tile height
 constexpr int RR = 8;         // row-pass outputs a task
 constexpr int RC = 5;         // column-pass outputs a task
 constexpr int THREADS = TW * (TH / RC);   // one column-pass task a thread
-constexpr int MAX_KLEN = 63;  // kernels/blur.py MAX_KLEN
+constexpr int MAX_KLEN = 63;  // kernels/blur.py MAX_FUSED_KLEN
+constexpr int PASS_THREADS = 256;
 static_assert(TH % RC == 0 && TW % RR == 0, "tile and tasks disagree");
 
 template <int K>
@@ -166,6 +180,29 @@ cudaError_t dispatch(int klen, const float* x, float* out, const float* col,
   }
 }
 
+// One pass of the wide blur: dst[i] = sum_t taps[t] * src[i + (t - k/2) *
+// step] over the taps whose source lies inside the plane, along rows
+// (step 1) or down columns (step w).
+template <bool ROWS>
+__global__ void __launch_bounds__(PASS_THREADS)
+blur_pass(const float* __restrict__ src, float* __restrict__ dst,
+          const float* __restrict__ taps, int k, int h, int w,
+          long long total) {
+  const long long i = (long long)blockIdx.x * PASS_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int pos = ROWS ? (int)(i % w) : (int)((i / w) % h);
+  const int len = ROWS ? w : h;
+  const long long step = ROWS ? 1 : w;
+  const int pad = k / 2;
+  const int t0 = max(0, pad - pos);
+  const int t1 = min(k, pad - pos + len);
+  const float* s = src + i + (t0 - pad) * step;
+  float acc = 0.f;
+  for (int t = t0; t < t1; ++t, s += step)
+    acc = fmaf(__ldg(taps + t), __ldg(s), acc);
+  dst[i] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -186,6 +223,30 @@ int xai_blur_planes(const void* x, void* out, const void* col,
                      static_cast<float*>(out), static_cast<const float*>(col),
                      static_cast<const float*>(row), n, h, w,
                      static_cast<cudaStream_t>(stream));
+}
+
+// klen > MAX_KLEN: x -> mid (row pass) -> out (column pass), two
+// launches.  x, mid, out: [n, h, w] float32 on the device, contiguous;
+// col, row: [klen] float32 taps on the device.  The caller checks shapes
+// and klen (odd).
+int xai_blur_planes_wide(const void* x, void* mid, void* out,
+                         const void* col, const void* row, int n, int h,
+                         int w, int klen, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)n * h * w;
+  const unsigned blocks =
+      static_cast<unsigned>((total + PASS_THREADS - 1) / PASS_THREADS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  blur_pass<true><<<blocks, PASS_THREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<float*>(mid),
+      static_cast<const float*>(row), klen, h, w, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blur_pass<false><<<blocks, PASS_THREADS, 0, st>>>(
+      static_cast<const float*>(mid), static_cast<float*>(out),
+      static_cast<const float*>(col), klen, h, w, total);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -12,11 +12,16 @@ an NVIDIA H100 80GB HBM3 at 700 W.
 The kernel now runs 32 x 40 tiles (126 blocks, one per SM), copies the
 tile with cp.async, keeps the taps in kernel parameters and slides
 register windows along rows and down columns; the source note says why
-the TPU's Toeplitz-matmul form does not carry over.
+the TPU's Toeplitz-matmul form does not carry over.  That fused kernel
+is instantiated for every odd klen up to ``MAX_FUSED_KLEN``; a wider
+klen (MDA's adaptive blur reaches 103) takes two launches, a row pass
+into a scratch plane and a column pass, with klen a run-time value, so
+every odd klen runs, as xai_tpu's ``make_blur_fn`` takes any.
 
 :func:`blur_planes` runs the plain version (the dense depthwise
 ``F.conv2d`` of ``gkern``) for CPU tensors; for CUDA tensors it launches
-the kernel or raises.
+the kernel or raises.  ``blur_planes.launches`` counts kernel launches:
+1 a call up to ``MAX_FUSED_KLEN``, 2 above it.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 from ..ops.blur import gaussian_blur, gkern
 from . import _build
 
-MAX_KLEN = 63       # csrc/blur.cu instantiates every odd klen up to it
+# csrc/blur.cu instantiates its fused kernel for every odd klen up to it
+MAX_FUSED_KLEN = 63
 
 
 @functools.lru_cache(maxsize=16)
@@ -46,14 +52,25 @@ def _factors(klen: int, nsig: float):
     return col.astype(np.float32), row.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_factors(klen: int, nsig: float, device: torch.device):
+    """The wide path's taps, copied to ``device`` once: ``(col, row)``."""
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in _factors(klen, nsig))
+
+
 @functools.lru_cache(maxsize=1)
 def _entry():
     lib = _build.load("blur")
-    fn = lib.xai_blur_planes
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fused = lib.xai_blur_planes
+    fused.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    fused.restype = ctypes.c_int
+    wide = lib.xai_blur_planes_wide
+    wide.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    wide.restype = ctypes.c_int
+    return lib, fused, wide
 
 
 def blur_planes_plain(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
@@ -65,8 +82,8 @@ def blur_planes_plain(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
 def blur_planes(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
                 ) -> torch.Tensor:
     """Blur every plane of ``x`` ``[N, H, W]`` float32 with ``gkern(klen,
-    nsig)``.  CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    nsig)`` for any odd ``klen``.  CPU tensors take the plain version;
+    CUDA tensors the kernel."""
     if x.device.type == "cpu":
         return blur_planes_plain(x, klen, nsig)
     if x.device.type != "cuda":
@@ -75,21 +92,31 @@ def blur_planes(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
         raise ValueError("blur_planes: need a contiguous float32 [N, H, W] "
                          f"tensor, got {x.dtype} {tuple(x.shape)} "
                          f"contiguous={x.is_contiguous()}")
-    if klen % 2 == 0 or not 1 <= klen <= MAX_KLEN:
-        raise ValueError(f"blur_planes: klen must be odd and <= {MAX_KLEN}")
+    if klen % 2 == 0 or klen < 1:
+        raise ValueError(f"blur_planes: klen must be odd and positive, "
+                         f"got {klen}")
     n, h, w = x.shape
     if n > 65535 or n * h * w >= 2 ** 31:
         raise ValueError(f"blur_planes: {tuple(x.shape)} exceeds the grid")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    col, row = _factors(klen, float(nsig))     # host taps, by value
-    lib, fn = _entry()
-    err = fn(x.data_ptr(), out.data_ptr(), col.ctypes.data, row.ctypes.data,
-             n, h, w, klen, x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    lib, fused, wide = _entry()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if klen <= MAX_FUSED_KLEN:
+        col, row = _factors(klen, float(nsig))     # host taps, by value
+        err = fused(x.data_ptr(), out.data_ptr(), col.ctypes.data,
+                    row.ctypes.data, n, h, w, klen, x.device.index, stream)
+        launched = 1
+    else:
+        col, row = _device_factors(klen, float(nsig), x.device)
+        mid = torch.empty_like(x)
+        err = wide(x.data_ptr(), mid.data_ptr(), out.data_ptr(),
+                   col.data_ptr(), row.data_ptr(), n, h, w, klen,
+                   x.device.index, stream)
+        launched = 2
     _build.check(lib, err, "blur_planes")
-    blur_planes.launches += 1
+    blur_planes.launches += launched
     return out
 
 

@@ -1,5 +1,6 @@
 """Shared runner plumbing: model construction by CLI name, device choice,
-per-image gates, result CSV writing.
+per-image gates and generators, the registry context and the batched
+attribution of kept images, result CSV writing.
 
 Counterpart of ``xai_tpu/runners/common.py``.  Entry points run on CUDA
 unless the caller passes ``device="cpu"``; with no device and no CUDA they
@@ -9,16 +10,21 @@ from __future__ import annotations
 
 import csv
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..convert.from_jax import load_params
+from ..methods.batch import batch_attribution
 from ..models import resnet
 from ..models.common import ModelBundle, ModelMeta
 from ..ops.blur import make_blur_fn
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize
+from ..registry import AttrContext, get_attribution
+
+ATTR_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 # reference per-model batch sizes (evaluatePerturbation.py:627-677); the
 # CNN rows of xai_tpu's table
@@ -42,6 +48,16 @@ def model_entry(model_name: str):
             f"--model {model_name}: its family is not ported yet "
             f"(ROADMAP.md item {NOT_PORTED[model_name]})")
     return MODEL_TABLE[model_name]
+
+
+def reject_unported(flags) -> None:
+    """Raise for the first given flag whose path is not ported yet, naming
+    the ROADMAP.md item that ports it; ``flags``: (given, flag, item)
+    triples.  No flag is silently ignored."""
+    for given, flag, item in flags:
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP.md item {item})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -109,6 +125,50 @@ def image_gates(bundle, x: torch.Tensor, blur_fn, gates: bool = True):
     ok = not (blur_own >= original_pred or black_own >= original_pred
               or target == black_class or target == blur_class)
     return target, original_pred, ok
+
+
+def image_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of image ``index``, deterministic in ``(seed,
+    index)``: the counterpart of xai_tpu's ``fold_in(PRNGKey(seed),
+    index)``.  A caller that attributes one image twice (the sanity
+    driver's two weight sets) builds one for each, so both draw alike."""
+    state = np.random.SeedSequence([seed, index]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(state))
+
+
+def attr_context(bundle, p, dtype=None) -> AttrContext:
+    """The registry context of one kept image ``p`` (a dict with ``x``,
+    ``trans_img``, ``target`` and ``generator``)."""
+    return AttrContext(bundle=bundle, x=p["x"], trans_img=p["trans_img"],
+                       target=p["target"], img_hw=bundle.meta.img_hw,
+                       generator=p["generator"], dtype=dtype)
+
+
+def batch_attribute(bundle, family, attr_func, pend, dtype=None):
+    """Attribute a pending batch with the batched implementation
+    (``methods/batch.py``), or image by image through the registry where
+    there is none (rise, xrai).  Returns ([B, H, W] saliencies,
+    seconds)."""
+    t = time.time()
+    sals = batch_attribution(
+        family, attr_func, bundle, torch.stack([p["x"] for p in pend]),
+        np.stack([p["trans_img"] for p in pend]),
+        [p["target"] for p in pend], [p["generator"] for p in pend],
+        img_hw=bundle.meta.img_hw, dtype=dtype)
+    if sals is None:
+        sals = np.stack([get_attribution(family, attr_func,
+                                         attr_context(bundle, p, dtype))
+                         for p in pend])
+    # returns host numpy, so the device work is done
+    return sals, time.time() - t
+
+
+@torch.no_grad()
+def predict_classes(bundle, xs: torch.Tensor) -> list:
+    """Top-1 classes of ``[B, H, W, C]`` normalized images, one forward."""
+    return bundle.apply(xs.permute(0, 3, 1, 2).contiguous()).argmax(
+        -1).tolist()
 
 
 def write_result_csv(folder: str, file_name: str, counters: dict,

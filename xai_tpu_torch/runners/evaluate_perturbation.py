@@ -24,7 +24,9 @@ batched form, attribute the batch's images one by one through the
 registry, and a partial last batch goes image by image with its stored
 targets.
 ``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
-model, on both paths.
+model, on both paths.  ``--save_maps`` writes every scored image's map to
+``<output_dir>/<model>_<attr_func>_maps.h5`` (``data/voc.py
+ExplanationsHDF5``; it needs ``h5py``).
 
 Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
 --attr_func ig --synthetic 2 --image_count 2`` (or any other CNN name:
@@ -42,44 +44,36 @@ import torch
 
 from ..data.classmaps import load_correct_mask
 from ..data.imagenet import ImageNetValStream
-from ..methods.batch import batch_attribution
+from ..data.voc import ExplanationsHDF5, require_h5py
 from ..metrics.curves import run_battery
 from ..parallel.sharded_battery import sharded_battery_scores
-from ..registry import AttrContext, get_attribution
-from .common import (build_bundle, default_blur, image_gates, model_entry,
-                     normalize_input, resolve_device, write_result_csv)
-
-ATTR_DTYPES = {"f32": None, "bf16": torch.bfloat16}
-
-
-def _reject_unported(args) -> None:
-    """Flags whose paths are not ported yet raise, naming the ROADMAP.md
-    item that ports them; none is silently ignored."""
-    unported = [
-        (args.save_maps, "--save_maps", "A12"),
-        (args.shard_images, "--shard_images", "A14"),
-        (bool(args.profile_dir), "--profile_dir", "A14"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md item {item})")
+from ..registry import get_attribution
+from .common import (ATTR_DTYPES, attr_context, batch_attribute,
+                     build_bundle, default_blur, image_gates,
+                     image_generator, model_entry, normalize_input,
+                     reject_unported, resolve_device, write_result_csv)
 
 
-def image_generator(seed: int, index: int, device) -> torch.Generator:
-    """The generator of image ``index``, deterministic in ``(seed,
-    index)``."""
-    state = np.random.SeedSequence([seed, index]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device).manual_seed(int(state))
+class _MapStore:
+    """The ``--save_maps`` writer: one dataset a scored image, with its
+    target and original prediction, in a file opened at the first map
+    (xai_tpu's ``write_map``)."""
 
+    def __init__(self, args):
+        self.path = os.path.join(args.output_dir,
+                                 f"{args.model}_{args.attr_func}_maps.h5")
+        self.store = None
 
-def _context(bundle, p, args) -> AttrContext:
-    """The registry context of one kept image ``p``."""
-    return AttrContext(bundle=bundle, x=p["x"], trans_img=p["trans_img"],
-                       target=p["target"], img_hw=bundle.meta.img_hw,
-                       generator=p["generator"],
-                       dtype=ATTR_DTYPES[args.attr_dtype])
+    def write(self, p, saliency) -> None:
+        if self.store is None:
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            self.store = ExplanationsHDF5(self.path, mode="w")
+        self.store.write(p["name"], saliency, target=p["target"],
+                         original_pred=p["original_pred"])
+
+    def close(self) -> None:
+        if self.store is not None:
+            self.store.close()
 
 
 def _accumulate(result, scores) -> None:
@@ -87,42 +81,31 @@ def _accumulate(result, scores) -> None:
         result[k] = result.get(k, 0.0) + v
 
 
-def _score_image(bundle, family, p, blur, result, args):
+def _score_image(bundle, family, p, blur, result, args, maps=None):
     """Attribution and battery of one kept image, image by image.
     Returns (its scores, the attribution seconds)."""
     t = time.time()
     # returns host numpy, so the device work is done when it returns
-    saliency = get_attribution(family, args.attr_func,
-                               _context(bundle, p, args))
+    saliency = get_attribution(family, args.attr_func, attr_context(
+        bundle, p, ATTR_DTYPES[args.attr_dtype]))
     attr_dt = time.time() - t
+    if maps is not None:
+        maps.write(p, saliency)
     scores = run_battery(bundle.apply, p["x"], saliency, blur, chunk=45,
                          target=p["target"])
     _accumulate(result, scores)
     return scores, attr_dt
 
 
-def _batch_attribute(bundle, family, pend, args):
-    """Attribute a full pending batch with the batched implementation
-    (``methods/batch.py``), or image by image through the registry where
-    there is none.  Returns ([B, H, W] saliencies, seconds)."""
-    t = time.time()
-    sals = batch_attribution(
-        family, args.attr_func, bundle, torch.stack([p["x"] for p in pend]),
-        np.stack([p["trans_img"] for p in pend]),
-        [p["target"] for p in pend], [p["generator"] for p in pend],
-        img_hw=bundle.meta.img_hw, dtype=ATTR_DTYPES[args.attr_dtype])
-    if sals is None:
-        sals = np.stack([get_attribution(family, args.attr_func,
-                                         _context(bundle, p, args))
-                         for p in pend])
-    # returns host numpy, so the device work is done
-    return sals, time.time() - t
-
-
-def _flush_batch(bundle, family, pend, blur, result, args) -> float:
+def _flush_batch(bundle, family, pend, blur, result, args,
+                 maps=None) -> float:
     """Batched attribution and batched battery for a full image batch.
     Returns the attribution seconds."""
-    sals, attr_dt = _batch_attribute(bundle, family, pend, args)
+    sals, attr_dt = batch_attribute(bundle, family, args.attr_func, pend,
+                                    ATTR_DTYPES[args.attr_dtype])
+    if maps is not None:
+        for p, s in zip(pend, sals):
+            maps.write(p, s)
     all_scores = sharded_battery_scores(
         bundle, torch.stack([p["x"] for p in pend]), sals, blur, chunk=45,
         targets=[p["target"] for p in pend])
@@ -136,7 +119,10 @@ def _flush_batch(bundle, family, pend, blur, result, args) -> float:
 
 def evaluate_perturbation(args, device=None) -> dict:
     """Run the driver; ``device`` defaults to ``cuda:<--cuda_num>``."""
-    _reject_unported(args)
+    reject_unported([(args.shard_images, "--shard_images", "A14"),
+                     (bool(args.profile_dir), "--profile_dir", "A14")])
+    if args.save_maps:
+        require_h5py("--save_maps")
     device = resolve_device(device or f"cuda:{args.cuda_num}")
     family, _ = model_entry(args.model)
     bundle = build_bundle(args.model, args.params_path, device=device)
@@ -158,6 +144,7 @@ def evaluate_perturbation(args, device=None) -> dict:
     images_used = 0
     attr_time = 0.0
     batch_buf = []
+    maps = _MapStore(args) if args.save_maps else None
     t0 = time.time()
     gating = not (args.synthetic or args.skip_gates)
 
@@ -167,14 +154,15 @@ def evaluate_perturbation(args, device=None) -> dict:
         if correct is not None and correct[item.index] == 0:
             continue
         x = normalize_input(item.trans_img, family, device)
-        target, _, ok = image_gates(bundle, x, blur, gates=gating)
+        target, original_pred, ok = image_gates(bundle, x, blur,
+                                                gates=gating)
         if not ok and gating:
             continue
         if classes_used[target] == images_per_class:
             continue
         classes_used[target] += 1
         p = {"x": x, "trans_img": item.trans_img, "name": item.name,
-             "target": target,
+             "target": target, "original_pred": original_pred,
              "generator": image_generator(args.seed, item.index, device)}
         images_used += 1
 
@@ -182,10 +170,11 @@ def evaluate_perturbation(args, device=None) -> dict:
             batch_buf.append(p)
             if len(batch_buf) == args.image_batch:
                 attr_time += _flush_batch(bundle, family, batch_buf, blur,
-                                          result, args)
+                                          result, args, maps)
             continue
 
-        scores, attr_dt = _score_image(bundle, family, p, blur, result, args)
+        scores, attr_dt = _score_image(bundle, family, p, blur, result, args,
+                                       maps)
         attr_time += attr_dt
         if args.verbose:
             print(f"[{images_used}/{args.image_count}] {item.name} "
@@ -194,9 +183,12 @@ def evaluate_perturbation(args, device=None) -> dict:
     # the partial last batch, one image at a time with its stored target
     # (the batched path needs a full batch)
     for p in batch_buf:
-        attr_time += _score_image(bundle, family, p, blur, result, args)[1]
+        attr_time += _score_image(bundle, family, p, blur, result, args,
+                                  maps)[1]
 
     total_time = time.time() - t0
+    if maps is not None:
+        maps.close()
     if images_used:
         folder = os.path.join(args.output_dir, args.model)
         write_result_csv(folder, f"{args.attr_func}_{args.image_count}_images",
@@ -233,7 +225,9 @@ def build_parser():
                         "the forwards and backwards on a bf16 copy of the "
                         "model, with float32 Riemann accumulation")
     p.add_argument("--save_maps", action="store_true",
-                   help="not ported yet (raises)")
+                   help="write every scored image's attribution map to "
+                        "<output_dir>/<model>_<attr_func>_maps.h5 (needs "
+                        "h5py)")
     p.add_argument("--skip_gates", action="store_true",
                    help="bypass the blur/black sanity gates (useful with "
                         "random weights; the reference gates assume a "
