@@ -56,6 +56,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    matplotlib imports) and the sweep (6 rows ok, each pert row blur 1
    and reveal 15 a scored image); sanity LIME's SPR and HOG may be NaN
    only where a map is constant, as xai_tpu's evaluate gives them;
+   then the ViT family (ROADMAP A10 slice 1) on VIT16 at 224 px with
+   seeded random weights: each of its 11 names (attn, grad, cam_attn,
+   n_rollout, rollout, t_attn, attn_ig, attn_attr, bi_attn, InFlow,
+   t_attr) image by image (--synthetic 2) and at --image_batch 4
+   --synthetic 4 --image_count 4000 in float32, rollout, t_attr and
+   bi_attn in bf16, rollout and t_attr (B=4) on VIT32 (each battery blur
+   1, reveal 15, quickshift 0); the sanity driver (rollout, t_attr at
+   B=4 in bf16; SPR and HOG NaN only where a map is constant), the seg
+   driver (rollout, t_attr at B=4), the image finder, the 11-name ViT
+   panel (exactly VIT_CX, TIS and MDA fail, naming A10 slice 2) and the
+   sweep's ViT rows (pert, sanity, seg x rollout, t_attr);
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
@@ -72,7 +83,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    held up to its first flipped choice: each flip a rounding-level tie,
    and AGI run for that many iterations within 1e-4 on both devices);
    TINY_R's sanity CSV and seg TXT (ig, gc) within 2e-3 of the CPU's,
-   the randomized weights bit-equal;
+   the randomized weights bit-equal; xai_tpu's 32 px test ViT: every
+   ViT name single and at B=3 within 1e-4 relative in float32
+   (bidirectional at start_layer 1 too), the batched battery within
+   2e-3, bf16 rollout against float32 Spearman rho > 0.95; its widths at
+   48 px as --model TINY_VIT: the randomized weights bit-equal, the
+   sanity CSV and seg TXT (rollout, t_attr, t_attr at B=2) within 2e-3;
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
    attribution of R101, LIME split by stage with CUDA events; then R101 at
    B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
@@ -80,7 +96,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    rest of the family warm on R101, image by image and at B=4 (shap in
    bf16 too), with CUDA events and peak memory; sanity-ig and seg-ig per
    image, split into attribution and host metrics, and the image
-   finder's images a second at --batch_size 100.
+   finder's images a second at --batch_size 100; then VIT16: each ViT
+   name's s/image image by image and at B=4 in float32 and bf16 with
+   peak memory, the battery image by image and at B=4, sanity-rollout
+   and seg-rollout per image, and the image finder's images a second.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -522,17 +541,17 @@ def synthetic_classes(torch, dev, n: int) -> list:
 
 
 def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
-                  batch):
-    """Phase 4: the flagship driver on R101, counters zeroed just before
-    and read just after.  A per-image path scores image by image (the
-    class quota may skip the second); a batched path must score all its
-    images in full batches."""
+                  batch, model="R101"):
+    """Phase 4: the flagship driver on ``model``, counters zeroed just
+    before and read just after.  A per-image path scores image by image
+    (the class quota may skip the second); a batched path must score all
+    its images in full batches."""
     from xai_tpu_torch.runners import evaluate_perturbation as ep
 
     out_dir = os.path.join(out_dir, label)
     attr_func = flags[flags.index("--attr_func") + 1]
     args = ep.build_parser().parse_args(
-        ["--model", "R101", *flags, "--synthetic", str(n_images),
+        ["--model", model, *flags, "--synthetic", str(n_images),
          "--image_count", str(count), "--image_batch", str(batch),
          "--output_dir", out_dir, "--verbose"])
     torch.cuda.reset_peak_memory_stats(dev)
@@ -554,7 +573,7 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     if scored < 1 or (batch > 1 and scored != n_images):
         fail(f"the {label} main path scored {scored} of {n_images} images")
 
-    with open(os.path.join(out_dir, "R101",
+    with open(os.path.join(out_dir, model,
                            f"{attr_func}_{count}_images.csv")) as f:
         rows = {r[0]: float(r[1]) for r in csv.reader(f) if r}
     scores = {k: v for k, v in rows.items()
@@ -1190,26 +1209,29 @@ SEG_LINES = ("Mean IoU over 2 classes", "Pixel-wise Accuracy",
              "Mean AP over 2 classes", "Mean F1 over 2 classes")
 
 
-def check_constant_lime(scores: dict, maps: list) -> None:
-    """The sanity driver's LIME scores on R101.  The randomized model
-    (every convolution redrawn, the folded batch norms left) puts its
-    logits in the millions: every LIME sample's softmax is one-hot at the
-    same class, the ridge finds no positive segment and the map is
-    constant.  xai_tpu's ``evaluate`` then gives SSIM on its zeroed map
-    but NaN Spearman and HOG Spearman (the Spearman of a constant
-    vector), and so does the port.  SSIM must be finite; SPR and HOG are
+def check_constant_maps(label, scores: dict, pairs: list,
+                        n_images: int) -> None:
+    """A sanity driver's scores, where a map may be constant.  R101's
+    randomized model (every convolution redrawn, the folded batch norms
+    left) puts its logits in the millions: every LIME sample's softmax is
+    one-hot at the same class, the ridge finds no positive segment and the
+    map is constant; a ViT with every parameter N(0, 1) saturates its
+    attention.  xai_tpu's ``evaluate`` gives a constant map SSIM on its
+    zeroed map but NaN Spearman and HOG Spearman (the Spearman of a
+    constant vector), and so does the port.  ``pairs``: (trained,
+    randomized) map of each image.  SSIM must be finite; SPR and HOG are
     NaN exactly where an image has a constant map, else finite."""
     import numpy as np
 
-    pairs = list(zip(maps[0::2], maps[1::2]))      # (trained, randomized)
     constant = [float(np.ptp(a)) == 0 or float(np.ptp(b)) == 0
                 for a, b in pairs]
-    print("sanity_lime scores:", json.dumps(scores))
+    print(f"{label} scores:", json.dumps(scores))
     nan = [k for k, v in scores.items() if not math.isfinite(v)]
     want = ["SPR", "HOG"] if any(constant) else []
-    if list(scores) != list(SANITY_KEYS) or nan != want or len(pairs) != 2:
-        fail(f"sanity_lime: scores {scores}, constant maps {constant}")
-    print(f"sanity_lime: {sum(constant)} of {len(pairs)} images have a "
+    if (list(scores) != list(SANITY_KEYS) or nan != want
+            or len(pairs) != n_images):
+        fail(f"{label}: scores {scores}, constant maps {constant}")
+    print(f"{label}: {sum(constant)} of {len(pairs)} images have a "
           f"constant map (randomized model: "
           f"{[float(np.ptp(b)) == 0 for _, b in pairs]}; trained model: "
           f"{[float(np.ptp(a)) == 0 for a, _ in pairs]}); SSIM finite, "
@@ -1301,7 +1323,8 @@ def drive_driver_paths(torch, dev, out_dir, classes, have) -> dict:
         scores = _read_sanity_csv(os.path.join(
             d, "R101", f"{args.attr_func}_{args.image_count}_images.csv"))
         if label == "sanity_lime":
-            check_constant_lime(scores, maps)
+            check_constant_maps(label, scores,
+                                list(zip(maps[0::2], maps[1::2])), 2)
         else:
             _finite_scores(label, scores, SANITY_KEYS)
     for label, flags in (
@@ -1624,6 +1647,471 @@ def time_gig_inner_loop(torch, dev, bundle, x, img, target):
           f" ms each, one host sync each)")
 
 
+# --- the ViT family (ROADMAP A10 slice 1) ---
+
+VIT_NAMES = ("attn", "grad", "cam_attn", "n_rollout", "rollout", "t_attn",
+             "attn_ig", "attn_attr", "bi_attn", "InFlow", "t_attr")
+VIT_BF16 = ("rollout", "t_attr", "bi_attn")
+# the flagship driver on VIT16 (and VIT32): every name image by image and
+# at B=4 in float32, three in bf16; (label, flags, images, --image_count,
+# --image_batch, model) as MAIN_PATHS
+VIT_PATHS = (
+    [(f"vit16_{n}", ["--attr_func", n], 2, 2, 1, "VIT16")
+     for n in VIT_NAMES]
+    + [(f"vit16_{n}_b4", ["--attr_func", n], 4, 4000, 4, "VIT16")
+       for n in VIT_NAMES]
+    + [(f"vit16_{n}_b4_bf16", ["--attr_func", n, "--attr_dtype", "bf16"], 4,
+        4000, 4, "VIT16") for n in VIT_BF16]
+    + [("vit32_rollout", ["--attr_func", "rollout"], 2, 2, 1, "VIT32"),
+       ("vit32_t_attr_b4", ["--attr_func", "t_attr"], 4, 4000, 4, "VIT32")])
+# xai_tpu's test ViT (tests/test_batch_attr.py), and its widths at 48 px
+# for the drivers (at 32 px HOG has no 3 x 3 block of 16 px cells)
+VIT32PX = dict(patch=8, embed_dim=32, depth=2, num_heads=4, mlp_ratio=2.0,
+               num_classes=16, img_hw=32)
+VIT_SLICE2_PANEL = ["MDA", "TIS", "VIT_CX"]
+
+
+def model_classes(torch, dev, model: str, n: int) -> list:
+    """``model``'s class (seeded random weights, as the drivers build
+    them) of each of the first ``n`` images of the --synthetic stream."""
+    from xai_tpu_torch.data.imagenet import ImageNetValStream
+    from xai_tpu_torch.runners.common import (build_bundle, normalize_input,
+                                              predict_classes)
+
+    bundle = build_bundle(model, device=dev)
+    family = bundle.meta.family
+    xs = torch.stack([normalize_input(it.trans_img, family, dev) for it in
+                      ImageNetValStream("", bundle.meta.img_hw,
+                                        synthetic=n)])
+    classes = predict_classes(bundle, xs)
+    print(f"{model} classes of the {n} synthetic images: {classes}")
+    return classes
+
+
+def _spy(module, name, store, pick=lambda out: out):
+    """Wrap ``module.name`` so that each call's (picked) result is
+    appended to ``store``; returns the original to put back."""
+    original = getattr(module, name)
+
+    def spy(*a, **k):
+        out = original(*a, **k)
+        store.append(pick(out))
+        return out
+
+    setattr(module, name, spy)
+    return original
+
+
+def drive_vit_driver_paths(torch, dev, out_dir, have) -> dict:
+    """Phase 4, the other drivers on VIT16 at 224 px: sanity (rollout
+    image by image, t_attr at B=4 in bf16), segmentation (rollout, t_attr
+    at B=4), the image finder, the 11-name ViT panel (exactly VIT_CX, TIS
+    and MDA fail, naming A10 slice 2) and the sweep's ViT rows (pert,
+    sanity, seg x rollout, t_attr); each through its entry point, with
+    its launches.  Returns the launches by path."""
+    import numpy as np
+
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners import image_finder as fi
+    from xai_tpu_torch.runners import qualitative_generation as qg
+    from xai_tpu_torch.runners import sweep as sw
+
+    by_path = {}
+    for label, flags, n in (
+            ("vit16_sanity_rollout", ["--attr_func", "rollout",
+                                      "--synthetic", "2", "--image_count",
+                                      "2"], 2),
+            ("vit16_sanity_t_attr_b4_bf16", ["--attr_func", "t_attr",
+                                             "--image_batch", "4",
+                                             "--synthetic", "4",
+                                             "--image_count", "4",
+                                             "--attr_dtype", "bf16"], 4)):
+        d = os.path.join(out_dir, label)
+        args = es.build_parser().parse_args(
+            ["--model", "VIT16", *flags, "--output_dir", d])
+        maps = []        # per call: [B, H, W], trained then randomized
+        get_attr = _spy(es, "get_attribution", maps, lambda m: m[None])
+        batch_attr = _spy(es, "batch_attribute", maps, lambda out: out[0])
+        try:
+            _, by_path[label] = run_path(
+                torch, label, lambda: es.evaluate_sanity(args, device=dev),
+                NO_LAUNCHES)
+        finally:
+            es.get_attribution, es.batch_attribute = get_attr, batch_attr
+        pairs = list(zip(np.concatenate(maps[0::2]),
+                         np.concatenate(maps[1::2])))
+        check_constant_maps(label, _read_sanity_csv(os.path.join(
+            d, "VIT16", f"{args.attr_func}_{args.image_count}_images.csv")),
+            pairs, n)
+    for label, flags in (
+            ("vit16_seg_rollout", ["--attr_func", "rollout", "--synthetic",
+                                   "2"]),
+            ("vit16_seg_t_attr_b4", ["--attr_func", "t_attr",
+                                     "--image_batch", "4", "--synthetic",
+                                     "4"])):
+        d = os.path.join(out_dir, label)
+        args = eg.build_parser().parse_args(
+            ["--model", "VIT16", *flags, "--output_dir", d])
+        _, by_path[label] = run_path(
+            torch, label, lambda: eg.evaluate_imagenet_seg(args, device=dev),
+            NO_LAUNCHES)
+        _finite_scores(label, _read_seg_txt(os.path.join(
+            d, "VIT16", f"{args.attr_func}_0_images")), SEG_LINES)
+
+    classes = model_classes(torch, dev, "VIT16", 8)
+    gt = os.path.join(out_dir, "vit16_ground_truth.txt")
+    with open(gt, "w") as f:
+        f.writelines(f"{c if i % 2 == 0 else (c + 1) % 1000}\n"
+                     for i, c in enumerate(classes))
+    args = fi.build_parser().parse_args(
+        ["--model", "VIT16", "--synthetic", "8", "--batch_size", "4",
+         "--ground_truth", gt, "--class_maps_dir",
+         os.path.join(out_dir, "class_maps")])
+    mask, by_path["vit16_image_finder"] = run_path(
+        torch, "vit16_image_finder",
+        lambda: fi.find_correctly_classified(args, device=dev), NO_LAUNCHES)
+    if mask.tolist() != [1, 0] * 4:
+        fail(f"VIT16 image_finder mask {mask.tolist()}")
+    print(f"vit16_image_finder: mask {mask.tolist()} as constructed")
+
+    panels = []
+    panel_maps = _spy(qg, "panel_maps", panels)
+    try:
+        if have["matplotlib"]:
+            args = qg.build_parser().parse_args(
+                ["--model", "VIT16", "--synthetic", "1", "--output_dir",
+                 os.path.join(out_dir, "vit_qualitative")])
+            written, by_path["vit16_qualitative"] = run_path(
+                torch, "vit16_qualitative",
+                lambda: qg.generate(args, device=dev), NO_LAUNCHES)
+            if list(written.values()) != [VIT_SLICE2_PANEL]:
+                fail(f"ViT qualitative grid: {written}")
+        else:
+            from xai_tpu_torch.data.imagenet import ImageNetValStream
+            from xai_tpu_torch.runners.common import build_bundle
+
+            bundle = build_bundle("VIT16", device=dev)
+            item = next(iter(ImageNetValStream("", 224, synthetic=1)))
+            _, by_path["vit16_qualitative"] = run_path(
+                torch, "vit16_qualitative", lambda: qg.panel_maps(
+                    bundle, item, qg.VIT_PANEL, 0, dev), NO_LAUNCHES)
+    finally:
+        qg.panel_maps = panel_maps
+    maps, failed = panels[0]
+    if (sorted(failed) != VIT_SLICE2_PANEL
+            or not all("A10 slice 2" in e for e in failed.values())
+            or sorted(maps) != sorted(set(qg.VIT_PANEL)
+                                      - set(VIT_SLICE2_PANEL))
+            or not all(np.isfinite(m).all() and m.shape == (224, 224)
+                       for m in maps.values())):
+        fail(f"ViT qualitative panel: failed {failed}, maps {sorted(maps)}")
+    print(f"vit16_qualitative: {len(maps)} of the {len(qg.VIT_PANEL)} ViT "
+          f"panel maps finite; failed, naming A10 slice 2: {sorted(failed)}")
+
+    d = os.path.join(out_dir, "vit_sweep")
+    args = sw.build_parser().parse_args(
+        ["--drivers", "pert,sanity,seg", "--models", "VIT16", "--methods",
+         "rollout,t_attr", "--synthetic", "2", "--image_count", "2",
+         "--output_dir", d])
+    scored = 2 * len(set(classes[:2]))
+    sanity_maps = []
+    get_attr = _spy(es, "get_attribution", sanity_maps)
+    try:
+        records, by_path["vit16_sweep"] = run_path(
+            torch, "vit16_sweep", lambda: sw.run_sweep(args, device=dev),
+            dict(NO_LAUNCHES, blur_planes=scored,
+                 reveal_batch=REVEAL_PER_BATTERY * scored))
+    finally:
+        es.get_attribution = get_attr
+    with open(os.path.join(d, "sweep_manifest.jsonl")) as f:
+        manifest = [json.loads(line) for line in f]
+    if len(manifest) != 6 or records != manifest or not all(
+            r["status"] == "ok" for r in manifest):
+        fail(f"ViT sweep manifest: {manifest}")
+    for r in manifest:
+        if r["driver"] == "sanity":
+            # the row's 4 maps: image 0 trained, randomized, image 1 ...
+            m, sanity_maps[:4] = sanity_maps[:4], []
+            check_constant_maps(f"vit16_sweep sanity/{r['attr_func']}",
+                                r["scores"], list(zip(m[0::2], m[1::2])), 2)
+        else:
+            _finite_scores(f"vit16_sweep {r['driver']}/{r['attr_func']}",
+                           r["scores"], list(r["scores"]))
+    print("vit16_sweep: 6 manifest rows, all ok: " + ", ".join(
+        f"{r['driver']}/{r['attr_func']} {r['seconds']} s" for r in manifest))
+    return by_path
+
+
+def tiny_vit(torch, device, img_hw: int = 32):
+    """xai_tpu's test ViT (VIT32PX) at ``img_hw``, flax-scheme random
+    weights of seed 0, on ``device``."""
+    from xai_tpu_torch.models import vit as tvit
+    from xai_tpu_torch.models.common import ModelBundle, ModelMeta
+
+    cfg = tvit.ViTConfig(**dict(VIT32PX, img_hw=img_hw))
+    module = tvit.init_random(tvit.VisionTransformer(cfg), seed=0)
+    return ModelBundle(ModelMeta(name="tinyvit", family="vit",
+                                 img_hw=img_hw, num_classes=16,
+                                 num_patches=cfg.grid, batch_size=8,
+                                 mean=(0.5,) * 3, std=(0.5,) * 3),
+                       module.to(device))
+
+
+def check_vit_reference(torch, dev):
+    """Phase 5, the ViT family: xai_tpu's 32 px test ViT on the card
+    against the same code on the CPU, in float32: every name single
+    (through the registry) and at B=3 (batch_attribution) within 1e-4 of
+    the CPU's largest value, bidirectional's head-weighted rollout at
+    start_layer 1 too (at the driver's start_layer 4 a 2-block model
+    weights no block: its maps are 0 on both devices); the batched
+    battery within 2e-3; bf16 rollout against float32 on the card,
+    Spearman rho > 0.95 per image (xai_tpu's contract)."""
+    import numpy as np
+
+    from xai_tpu_torch.methods import vit_explain as VE
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.ops.stats import spearman_np
+    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
+    from xai_tpu_torch.registry import AttrContext, get_attribution
+    from xai_tpu_torch.runners.common import default_blur
+
+    cpu = torch.device("cpu")
+    imgs = np.random.RandomState(2).randn(3, 32, 32, 3).astype(np.float32)
+    targets = [3, 0, 11]
+    runs = {}
+    for name, d in (("cuda", dev), ("cpu", cpu)):
+        bundle = tiny_vit(torch, d)
+        xs = torch.as_tensor(imgs, device=d)
+        out = {}
+        for m in VIT_NAMES:
+            out[m, "single"] = np.stack([get_attribution(
+                "vit", m, AttrContext(bundle=bundle, x=x, trans_img=im,
+                                      target=t, img_hw=32))
+                for x, im, t in zip(xs, imgs, targets)])
+            out[m, "b3"] = batch_attribution("vit", m, bundle, imgs, imgs,
+                                             targets, None, img_hw=32)
+        out["bi_attn_start1", "b3"] = VE.bidirectional(
+            bundle, xs, targets, start_layer=1).cpu().numpy()
+        runs[name] = (bundle, xs, out)
+    worst = {}
+    for key, want in runs["cpu"][2].items():
+        got = runs["cuda"][2][key]
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / (scale or 1.0)
+        worst[key] = err
+        if not (np.isfinite(got).all() and err < 1e-4):
+            fail(f"tiny ViT {key} on the card differs from the CPU: {err}")
+    (b_gpu, x_gpu, _), (b_cpu, x_cpu, out_cpu) = runs["cuda"], runs["cpu"]
+    sals = out_cpu["t_attr", "b3"]
+    sg = sharded_battery_scores(b_gpu, x_gpu, sals, default_blur(), 45,
+                                targets)
+    sc = sharded_battery_scores(b_cpu, x_cpu, sals, default_blur(), 45,
+                                targets)
+    bat = max(abs(g[k] - c[k]) for g, c in zip(sg, sc) for k in c)
+    if not bat < 2e-3 or not all(math.isfinite(v) for s in sg
+                                 for v in s.values()):
+        fail(f"tiny ViT batched battery on the card differs: {sg} vs {sc}")
+    f32 = runs["cuda"][2]["rollout", "b3"]
+    b16 = batch_attribution("vit", "rollout", b_gpu, imgs, imgs, targets,
+                            None, img_hw=32, dtype=torch.bfloat16)
+    rho = [spearman_np(a, b) for a, b in zip(f32, b16)]
+    if not min(rho) > 0.95:
+        fail(f"tiny ViT bf16 rollout against float32: rho {rho}")
+    print("tiny ViT 32 px, card vs CPU, max |delta| / CPU max (< 1e-4): "
+          + ", ".join(f"{m} {worst[m, 'single']:.3g} / B=3 "
+                      f"{worst[m, 'b3']:.3g}" for m in VIT_NAMES)
+          + f", bi_attn start_layer 1 B=3 {worst['bi_attn_start1', 'b3']:.3g}"
+          f"; batched battery max |score delta| {bat:.3g} (< 2e-3); bf16 "
+          f"rollout against float32 on the card, Spearman rho "
+          f"{', '.join(f'{r:.4f}' for r in rho)} (> 0.95)")
+
+
+@contextlib.contextmanager
+def tiny_vit_model(img_hw: int):
+    """--model TINY_VIT as the test ViT at ``img_hw`` (the constructor's
+    config replaced for the duration, as the CPU tests do)."""
+    from xai_tpu_torch.models import vit as tvit
+
+    key = "vit_tiny_patch16_224"
+    old = tvit.CONFIGS[key]
+    tvit.CONFIGS[key] = tvit.ViTConfig(**dict(VIT32PX, img_hw=img_hw))
+    try:
+        yield
+    finally:
+        tvit.CONFIGS[key] = old
+
+
+def check_tiny_vit_drivers(torch, dev):
+    """Phase 5, the ViT drivers: --model TINY_VIT as the test ViT at 48 px
+    (so that HOG has a block) on the card against the CPU: the randomized
+    weights bit-equal, the sanity CSV and the seg TXT of rollout and
+    t_attr (t_attr also at --image_batch 2) within 2e-3."""
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners.common import build_bundle
+
+    cpu = torch.device("cpu")
+    report = []
+    with tiny_vit_model(48), tempfile.TemporaryDirectory() as out_dir:
+        weights = [{k: v.cpu() for k, v in es.randomize_family(
+            build_bundle("TINY_VIT", device=d), "vit",
+            torch.Generator().manual_seed(1)).module.state_dict().items()}
+            for d in (dev, cpu)]
+        if not all(torch.equal(weights[0][k], weights[1][k])
+                   for k in weights[1]):
+            fail("the sanity driver's randomized ViT differs card vs CPU")
+        for name, batch in (("rollout", 1), ("t_attr", 1), ("t_attr", 2)):
+            for drv, fn, parser in (
+                    ("sanity", es.evaluate_sanity, es.build_parser),
+                    ("seg", eg.evaluate_imagenet_seg, eg.build_parser)):
+                flags = ["--model", "TINY_VIT", "--attr_func", name,
+                         "--synthetic", "3", "--image_batch", str(batch),
+                         "--output_dir", out_dir]
+                if drv == "sanity":
+                    flags += ["--image_count", "3"]
+                got, want = (fn(parser().parse_args(flags), device=d)
+                             for d in (dev, cpu))
+                same_nan = all(math.isnan(got[k]) == math.isnan(want[k])
+                               for k in want)
+                worst = max((abs(got[k] - want[k]) for k in want
+                             if not math.isnan(want[k])), default=0.0)
+                report.append(f"{drv} {name} B={batch} {worst:.3g}")
+                if not (same_nan and worst < 2e-3):
+                    fail(f"TINY_VIT {drv} {name} B={batch} on the card "
+                         f"differs from the CPU: {got} vs {want}")
+    print("TINY_VIT (test ViT at 48 px), the drivers card vs CPU: "
+          "randomized weights bit-equal; max |score delta| (< 2e-3): "
+          + ", ".join(report))
+
+
+def time_warm_vit(torch, dev, card):
+    """Phase 6, the ViT family on VIT16, warm, with CUDA events: each
+    name's s/image image by image (the registry) and at B=4 in float32
+    and bf16 (batch_attribution), with peak memory; the battery image by
+    image and at B=4; sanity-rollout and seg-rollout per image, split
+    into attribution and host metrics; the image finder's images a second
+    at --batch_size 100 (end to end and the forward alone)."""
+    import numpy as np
+
+    from xai_tpu_torch.data.segmentation import ImagenetSegmentation
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.metrics.curves import run_battery
+    from xai_tpu_torch.metrics.sanity import evaluate as sanity_evaluate
+    from xai_tpu_torch.metrics.seg import eval_batch
+    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
+    from xai_tpu_torch.registry import AttrContext, get_attribution
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners import image_finder as fi
+    from xai_tpu_torch.runners.common import (build_bundle, default_blur,
+                                              normalize_input,
+                                              predict_classes)
+
+    bundle = build_bundle("VIT16", device=dev)
+    imgs = np.random.RandomState(0).rand(4, 224, 224, 3).astype(np.float32)
+    xs = torch.stack([normalize_input(im, "vit", dev) for im in imgs])
+    targets = predict_classes(bundle, xs)
+    out = {}
+    for name in VIT_NAMES:
+        ctx = AttrContext(bundle=bundle, x=xs[0], trans_img=imgs[0],
+                          target=targets[0])
+        calls = [("image", lambda: get_attribution("vit", name, ctx)[None],
+                  1)]
+        for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            calls.append((f"b4 {dname}", lambda dtype=dtype: (
+                batch_attribution("vit", name, bundle, xs, imgs, targets,
+                                  None, dtype=dtype)), 4))
+        for kind, fn, b in calls:
+            fn()                                     # warm
+            torch.cuda.reset_peak_memory_stats(dev)
+            sal, sec = _event_s(torch, fn)
+            if not np.isfinite(sal).all():
+                fail(f"warm VIT16 {name} {kind}: non-finite saliency")
+            out[name, kind] = (sec / b, torch.cuda.max_memory_allocated(dev))
+    for (name, kind), (sec, peak) in out.items():
+        print(f"VIT16 warm {name} {kind}: {sec:.4f} s/image (peak memory "
+              f"{peak / 2 ** 30:.2f} GiB)")
+    print("VIT16 warm, s/image (CUDA events), image by image / B=4 f32 / "
+          "B=4 bf16: " + ", ".join(
+              f"{n} {out[n, 'image'][0]:.4f} / {out[n, 'b4 f32'][0]:.4f} / "
+              f"{out[n, 'b4 bf16'][0]:.4f}" for n in VIT_NAMES)
+          + f" on {card}")
+
+    sal1 = get_attribution("vit", "rollout", AttrContext(
+        bundle=bundle, x=xs[0], trans_img=imgs[0], target=targets[0]))
+    sals = batch_attribution("vit", "rollout", bundle, xs, imgs, targets,
+                             None)
+    blur = default_blur()
+    for _ in range(2):                       # the first round warms up
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t1 = _event_s(torch, lambda: run_battery(
+            bundle.apply, xs[0], sal1, blur, chunk=45, target=targets[0]))
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t4 = _event_s(torch, lambda: sharded_battery_scores(
+            bundle, xs, sals, blur, 45, targets))
+        peak4 = torch.cuda.max_memory_allocated(dev)
+    print(f"VIT16 warm battery: {t1:.4f} s/image image by image (peak "
+          f"{peak1 / 2 ** 30:.2f} GiB), {t4 / 4:.4f} s/image at B=4 (peak "
+          f"{peak4 / 2 ** 30:.2f} GiB) on {card}")
+
+    rand = es.randomize_family(bundle, "vit",
+                               torch.Generator().manual_seed(1))
+    item = next(iter(ImagenetSegmentation("", 224, synthetic=1)))
+    x = normalize_input(item.trans_img, "vit", dev)
+
+    def rollout(b):
+        return get_attribution("vit", "rollout", AttrContext(
+            bundle=b, x=x, trans_img=item.trans_img,
+            target=predict_classes(b, x[None])[0]))
+
+    for _ in range(2):                      # the first round warms up
+        a, t_a = _event_s(torch, lambda: rollout(bundle))
+        ar, t_r = _event_s(torch, lambda: rollout(rand))
+        t0 = time.perf_counter()
+        sanity_evaluate(a, ar)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_batch(a, item.gt_mask)
+        t_seg = time.perf_counter() - t0
+    print(f"VIT16 warm sanity-rollout: {t_a + t_r + t_host:.4f} s/image = "
+          f"rollout trained {t_a:.4f} + randomized {t_r:.4f} (CUDA events) "
+          f"+ host SSIM/Spearman/HOG {t_host:.4f}; seg-rollout: "
+          f"{t_a + t_seg:.4f} s/image = rollout {t_a:.4f} + host metrics "
+          f"{t_seg:.4f} on {card}")
+
+    n = 500
+    with tempfile.TemporaryDirectory() as d:
+        gt = os.path.join(d, "gt.txt")
+        with open(gt, "w") as f:
+            f.write("1\n" * n)
+        args = fi.build_parser().parse_args(
+            ["--model", "VIT16", "--synthetic", str(n), "--batch_size",
+             "100", "--ground_truth", gt, "--class_maps_dir", d])
+        for _ in range(2):                  # the first round warms up
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fi.find_correctly_classified(args, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_bundle("VIT16", device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    xb = torch.as_tensor(np.random.RandomState(1).rand(100, 224, 224, 3),
+                         dtype=torch.float32, device=dev)
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t_fwd = _event_s(torch, lambda: predict_classes(bundle, xb))
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"VIT16 warm image_finder at --batch_size 100: "
+          f"{n / (wall - t_build):.1f} images/s end to end ({n} synthetic "
+          f"images in {wall:.3f} s, of it {t_build:.3f} s building the "
+          f"bundle); the batched forward alone {100 / t_fwd:.1f} images/s "
+          f"({t_fwd * 1e3:.2f} ms a batch of 100, peak "
+          f"{peak / 2 ** 30:.2f} GiB, CUDA events) on {card}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1666,18 +2154,23 @@ def main() -> None:
     classes = synthetic_classes(torch, dev, 8)
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
-        for label, *path in MAIN_PATHS:
+        for label, *path in MAIN_PATHS + VIT_PATHS:
             by_path[label] = run_main_path(torch, dev, out_dir, label, *path)
         by_path.update(drive_driver_paths(torch, dev, out_dir, classes,
                                           have))
+        by_path.update(drive_vit_driver_paths(torch, dev, out_dir, have))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)
     check_tiny_drivers(torch, dev)
+    check_vit_reference(torch, dev)
+    check_tiny_vit_drivers(torch, dev)
     bundle, per_image = time_warm_image(torch, dev, card)
     time_warm_batch(torch, dev, card, bundle, per_image)
     time_warm_a8(torch, dev, card, bundle)
     time_warm_drivers(torch, dev, card, bundle)
+    del bundle
+    time_warm_vit(torch, dev, card)
 
     for row in rows:
         name = row["name"]

@@ -223,7 +223,7 @@ def test_a8_float64_copy_keeps_float64_scores(twins32, name, monkeypatch):
 
 
 @pytest.mark.parametrize("family,name,item", [
-    ("vit", "attn", "A10"), ("clip", "eclip", "A11")])
+    ("vit", "VIT_CX", "A10 slice 2"), ("clip", "eclip", "A11")])
 def test_unported_batch_names_raise(twins, family, name, item):
     _, tb, xs, targets, _ = twins
     assert TB.has_batch_impl(family, name)

@@ -267,9 +267,9 @@ def test_unported_flags_raise(tmp_path, params_path, flag):
 def test_unported_model_and_method_raise(tmp_path):
     base = ["--synthetic", "1", "--image_count", "1", "--output_dir",
             str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         TD.evaluate_perturbation(TD.build_parser().parse_args(
-            ["--model", "VIT16", *base]), device="cpu")
+            ["--model", "CLIP16", *base]), device="cpu")
     with pytest.raises(KeyError, match="unknown cnn attribution 'nope'"):
         TD.evaluate_perturbation(TD.build_parser().parse_args(
             ["--model", "TINY_R", "--attr_func", "nope", *base]),

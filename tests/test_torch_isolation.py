@@ -32,7 +32,8 @@ for m in ("runners.evaluate_perturbation", "ops.resize", "methods.guided",
           "runners.evaluate_sanity", "runners.evaluate_imagenet_seg",
           "runners.image_finder", "runners.qualitative_generation",
           "runners.sweep", "utils.visualization", "utils.render",
-          "utils.saver"):
+          "utils.saver", "models.vit", "methods.vit_explain",
+          "methods.vit_lrp"):
     assert "xai_tpu_torch." + m in names, (m, names)
 # the native segmenter compiles the port's own copy of its source
 import xai_tpu_torch.native as native
@@ -67,7 +68,7 @@ def _run(args, cwd, timeout=120):
 def test_port_imports_no_jax_and_no_xai_tpu():
     r = _run(["-c", _IMPORT_ALL], REPO)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 48        # every module was imported
+    assert int(r.stdout.strip()) >= 51        # every module was imported
 
 
 def test_port_imports_without_sklearn_h5py_matplotlib():

@@ -163,8 +163,8 @@ def test_randomize_family_is_deterministic_in_the_seed():
     a, b, c = draw(3), draw(3), draw(4)
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert not torch.equal(a["conv1.weight"], c["conv1.weight"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        TD.randomize_family(bundle, "vit", torch.Generator())
+    with pytest.raises(NotImplementedError, match="A11"):
+        TD.randomize_family(bundle, "clip", torch.Generator())
 
 
 def _injected(path):

@@ -212,9 +212,9 @@ def test_per_image_seg_ignores_attr_dtype(tmp_path, params_path):
 
 def test_seg_unported_paths_raise(tmp_path):
     base = ["--synthetic", "1", "--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         TD.evaluate_imagenet_seg(TD.build_parser().parse_args(
-            ["--model", "VIT16", *base]), device="cpu")
+            ["--model", "CLIP16", *base]), device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         TD.evaluate_imagenet_seg(TD.build_parser().parse_args(
             ["--model", "TINY_R", "--shard_images", *base]), device="cpu")

@@ -145,7 +145,7 @@ def test_image_finder_zoo_is_xai_tpus_beyond_the_drivers():
 
 @pytest.mark.parametrize("model,item", [("VGG16", "A13"),
                                         ("swin_tiny", "A13"),
-                                        ("VIT16", "A10"), ("CLIP32", "A11")])
+                                        ("VIT8", "A13"), ("CLIP32", "A11")])
 def test_image_finder_unported_models_raise(tmp_path, model, item):
     args = TF.build_parser().parse_args(
         ["--model", model, "--synthetic", "1", "--class_maps_dir",
@@ -250,21 +250,22 @@ def _records(path):
 
 def test_sweep_resumes_and_records_unported_rows(tmp_path):
     """Every run writes a manifest line; a second sweep skips the ok runs
-    and retries the failed ones; a ViT row records its A10 error."""
-    argv = ["--drivers", "pert,sanity,seg", "--models", "TINY_R,VIT16",
+    and retries the failed ones; a CLIP row records its A11 error (the
+    ViT rows run: tests/test_torch_vit_drivers.py)."""
+    argv = ["--drivers", "pert,sanity,seg", "--models", "TINY_R,CLIP16",
             "--methods", "grad", "--synthetic", "1", "--image_count", "1",
             "--output_dir", str(tmp_path)]
     first = TW.run_sweep(TW.build_parser().parse_args(argv), device="cpu")
     assert [(r["driver"], r["model"], r["status"]) for r in first] == [
         (d, m, "ok" if m == "TINY_R" else "error")
-        for d in ("pert", "sanity", "seg") for m in ("TINY_R", "VIT16")]
+        for d in ("pert", "sanity", "seg") for m in ("TINY_R", "CLIP16")]
     for r in first:
         if r["status"] == "error":
-            assert "A10" in r["error"]
+            assert "A11" in r["error"]
         else:
             assert all(np.isfinite(v) for v in r["scores"].values())
     second = TW.run_sweep(TW.build_parser().parse_args(argv), device="cpu")
-    assert [r["model"] for r in second] == ["VIT16"] * 3
+    assert [r["model"] for r in second] == ["CLIP16"] * 3
     assert len(_records(tmp_path / "sweep_manifest.jsonl")) == 9
 
 

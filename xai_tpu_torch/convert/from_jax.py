@@ -6,9 +6,13 @@ reads that file and renames and transposes each array into the port's
 ``nn.Module`` layout, so one ``--params_path`` file serves both packages:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW (also right for grouped convs,
-  whose HWIO kernel is ``[kh, kw, in/groups, out]``);
-- dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
-- everything else (folded-BN ``scale``/``bias``, dense ``bias``) as is.
+  whose HWIO kernel is ``[kh, kw, in/groups, out]``, and for the ViT's
+  ``patch_embed``);
+- dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]`` (the ViT's
+  ``attn/qkv``, ``attn/proj``, ``mlp_fc1``, ``mlp_fc2`` and ``head`` too);
+- everything else as is: folded-BN and LayerNorm ``scale``/``bias`` (the
+  port's ``FoldedBN`` and ``LayerNorm`` keep flax's names), dense and conv
+  ``bias``, the ViT's ``cls_token`` and ``pos_embed``.
 
 Only ``.npz`` is read: ``.msgpack`` needs flax, and pickle runs code.
 """

@@ -1,7 +1,7 @@
 """Batched multi-image attribution: the production ``--image_batch`` path.
 
-Counterpart of ``xai_tpu/methods/batch.py``, CNN family.  The IG family
-(ig, lig, idg, idgi, sg) folds the image axis into the chunked
+Counterpart of ``xai_tpu/methods/batch.py``, CNN and ViT families.  The
+IG family (ig, lig, idg, idgi, sg) folds the image axis into the chunked
 interpolation sweep of ``methods/gradient.py``: one flat sweep over
 ``B*steps`` (``B*samples*steps`` for sg) images with one target per row,
 per-image cutoffs and redistributions as batched tensor logic.  grad,
@@ -10,6 +10,10 @@ and shap run their cores of ``methods/ablation.py`` over the batch, with
 each image's draws taken from its own generator as the per-image path
 takes them; gig and agi run their batched loops; lime goes through
 ``lime_batch``.  rise and xrai have no batched form, in xai_tpu either.
+The 11 ViT names run their explainers (``methods/vit_explain.py``,
+``methods/vit_lrp.py``) on the batch, every per-image reduction per
+image; VIT_CX comes with ROADMAP.md item A10 slice 2, and TIS and MDA,
+which xai_tpu runs image by image, return None.
 
 Outputs are final ``[B, H, W]`` float32 numpy saliencies, post-processed
 as the single-image registry entries are, so the driver's battery takes
@@ -24,11 +28,13 @@ import numpy as np
 import torch
 
 from . import ablation as AB
+from . import vit_explain as VE
 from .agi import agi_batch
 from .gig import guided_ig_batch
 from .guided import guided_grads, layer_gradcam
 from .gradient import (_channel0, _fit_chunk, _idg_sweep, _idgi_sweep,
                        _ig_sweep, sg_noise)
+from .vit_lrp import transformer_attribution
 from ..ops.resize import resize_bilinear, resize_nearest_exact
 
 # xai_tpu's batched names (xai_tpu/methods/batch.py BATCH_NAMES)
@@ -42,7 +48,9 @@ BATCH_NAMES = {
              "selfattn", "game", "rollout", "lrp", "m2ib", "surgery"),
 }
 # the ROADMAP.md item that ports each family still to come
-NOT_PORTED_ITEM = {"vit": "A10", "clip": "A11"}
+NOT_PORTED_ITEM = {"clip": "A11"}
+# the ViT names whose methods come with ROADMAP.md item A10 slice 2
+VIT_SLICE2 = ("TIS", "VIT_CX", "MDA", "MDA_dense")
 # production driver constants (evaluatePerturbation.py:94-97, 164-176),
 # overridable through batch_attribution(opts=...) for small shapes
 _DEFAULT_OPTS = {
@@ -55,6 +63,37 @@ _DEFAULT_OPTS = {
 
 def has_batch_impl(family: str, name: str) -> bool:
     return name in BATCH_NAMES.get(family, ())
+
+
+def vit_slice2_error(name: str) -> NotImplementedError:
+    return NotImplementedError(f"vit attribution '{name}' is not ported yet "
+                               "(ROADMAP.md item A10 slice 2)")
+
+
+# the 11 ViT names of xai_tpu's registry (registry_vit.py, batch.py
+# _vit_adapter) -> [B, P, P] patch maps at the drivers' settings
+VIT_PATCH_MAPS = {
+    "attn": lambda b, x, t: VE.raw_attn(b, x),
+    "grad": VE.attn_grad,
+    "cam_attn": VE.cam_attn,
+    "n_rollout": lambda b, x, t: VE.naive_rollout(b, x),
+    "rollout": lambda b, x, t: VE.rollout(b, x),
+    "t_attn": VE.transition_attention,
+    "attn_ig": VE.attn_ig,
+    "attn_attr": VE.attn_attr,
+    "bi_attn": VE.bidirectional,
+    "InFlow": VE.rave,
+    "t_attr": transformer_attribution,
+}
+
+
+def vit_saliency(name, bundle, xs, targets, img_hw) -> torch.Tensor:
+    """``[B, H, W]``: the patch maps of ``[B, H, W, C]`` images, upsampled
+    bilinearly to the image (xai_tpu's weight matrices, ops/resize.py),
+    abs; no x3 (the driver abs-sums one channel).  In the bundle's
+    dtype."""
+    return resize_bilinear(VIT_PATCH_MAPS[name](bundle, xs, targets),
+                           (img_hw, img_hw)).abs()
 
 
 def _nchw(xs: torch.Tensor) -> torch.Tensor:
@@ -177,13 +216,16 @@ def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
     overrides the production method constants (``_DEFAULT_OPTS``).
 
     Returns None when xai_tpu has no batched implementation either (rise,
-    xrai), so that the caller loops the per-image path.  The ViT and CLIP
-    families raise ``NotImplementedError`` naming the ROADMAP.md item that
-    ports them."""
+    xrai, TIS, MDA), so that the caller loops the per-image path.  VIT_CX
+    and the CLIP family raise ``NotImplementedError`` naming the
+    ROADMAP.md item that ports them.  A ViT name runs its explainer on
+    the batch, in ``dtype`` on the bundle's cast copy."""
     if family in NOT_PORTED_ITEM:
         raise NotImplementedError(
             f"batched {family} attribution '{name}' is not ported yet "
             f"(ROADMAP.md item {NOT_PORTED_ITEM[family]})")
+    if family == "vit" and name == "VIT_CX":
+        raise vit_slice2_error(name)
     if not has_batch_impl(family, name):
         return None
     opts = {**_DEFAULT_OPTS, **(opts or {})}
@@ -198,7 +240,9 @@ def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
     xs = torch.as_tensor(xs, dtype=torch.float32, device=bundle.device)
     tg = torch.as_tensor(np.asarray(targets), dtype=torch.int64,
                          device=bundle.device)
-    if name in ("ig", "lig"):
+    if family == "vit":
+        sal = vit_saliency(name, bundle.cast(dtype), xs, tg, img_hw)
+    elif name in ("ig", "lig"):
         sal = ig_lig_batch(bundle, xs, tg, steps,
                            1.0 if name == "ig" else 0.9, dtype)
     elif name in ("idg", "idgi"):

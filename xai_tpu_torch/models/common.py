@@ -13,6 +13,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import itertools
+import math
 
 import torch
 import torch.nn as nn
@@ -24,13 +25,14 @@ from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 class ModelMeta:
     """Static metadata describing a model family member."""
 
-    name: str                       # registry name, e.g. "R101"
+    name: str                       # registry name, e.g. "R101", "VIT16"
     family: str                     # "cnn" | "vit" | "clip"
     img_hw: int = 224
     num_classes: int = 1000
+    num_patches: int = 0            # per side: 14 for ViT-B/16, 7 for /32
     batch_size: int = 50            # reference's per-model chunk size
     # the normalization of the model's input (AGI composes it into the
-    # model); every CNN of the port takes ImageNet's
+    # model): ImageNet's for the CNNs, (0.5, 0.5, 0.5) for the ViTs
     mean: tuple = IMAGENET_MEAN
     std: tuple = IMAGENET_STD
 
@@ -39,8 +41,8 @@ class ModelBundle:
     """A model as a frozen module plus its metadata.
 
     ``apply`` maps an NCHW batch to logits; ``apply_taps`` also returns the
-    dict of stage activations (see resnet.py); ``apply_probed`` adds zero
-    probes to them."""
+    dict of taps (stage activations, resnet.py; stacked per-block
+    intermediates, vit.py); ``apply_probed`` adds zero probes to them."""
 
     def __init__(self, meta: ModelMeta, module: nn.Module):
         self.meta = meta
@@ -58,6 +60,12 @@ class ModelBundle:
         buffer's), float32 for a module that holds neither."""
         p = self._first_tensor()
         return torch.float32 if p is None else p.dtype
+
+    @property
+    def extras(self):
+        """The family's static configuration (a ViT's ``ViTConfig``), as
+        xai_tpu's ``bundle.extras`` holds it; None for the CNNs."""
+        return getattr(self.module, "cfg", None)
 
     @property
     def device(self) -> torch.device:
@@ -137,3 +145,21 @@ def target_scores(logits: torch.Tensor, target) -> torch.Tensor:
     if isinstance(target, torch.Tensor):
         return logits.gather(1, target.view(-1, 1))[:, 0]
     return logits[:, target]
+
+
+@torch.no_grad()
+def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default kernels on every ``Conv2d`` and ``Linear`` of
+    ``model``, in module order, drawn from the CPU ``generator``:
+    ``lecun_normal`` (a normal truncated at +-2 sd, rescaled to unit
+    variance, times 1/sqrt(fan_in)) and zero biases."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            m.weight.copy_(w * std)
+            if m.bias is not None:
+                m.bias.zero_()
+    return model

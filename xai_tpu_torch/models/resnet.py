@@ -10,12 +10,13 @@ Inference BatchNorm is folded into a per-channel ``x * scale + bias``
 """
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .common import lecun_init_
 
 
 class FoldedBN(nn.Module):
@@ -148,22 +149,10 @@ def set_relu(model: nn.Module, relu: Callable) -> nn.Module:
     return model
 
 
-@torch.no_grad()
 def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights in flax's default scheme (truncated-normal
     LeCun kernels, zero dense bias, identity FoldedBN).  The numbers differ
     from JAX's PRNG; tests that compare the two packages carry the JAX
     weights over instead."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            # flax lecun_normal: truncated at +-2 sd, rescaled to unit var
-            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-            w = torch.empty(m.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            m.weight.copy_(w * std)
-            if getattr(m, "bias", None) is not None:
-                m.bias.zero_()
-    return model
+    return lecun_init_(model, torch.Generator(device="cpu").manual_seed(seed))
 

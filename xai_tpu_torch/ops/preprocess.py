@@ -17,6 +17,8 @@ except ImportError:  # pragma: no cover
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+VIT_MEAN = (0.5, 0.5, 0.5)
+VIT_STD = (0.5, 0.5, 0.5)
 
 
 def center_crop_resize(img, img_hw: int = 224,

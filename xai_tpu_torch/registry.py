@@ -1,8 +1,12 @@
 """Attribution registry keyed by the reference CLI names.
 
-Counterpart of ``xai_tpu/registry.py``.  Each entry maps a context to a
-``[H, W]`` numpy saliency.  This holds every CNN entry of xai_tpu's
-table; the ViT and CLIP tables arrive with their families (ROADMAP.md).
+Counterpart of ``xai_tpu/registry.py`` and ``registry_vit.py``.  Each
+entry maps a context to a ``[H, W]`` numpy saliency.  This holds every
+CNN entry of xai_tpu's table and the 11 ViT names of
+``methods/batch.py VIT_PATCH_MAPS`` (each the batch of one); TIS, VIT_CX,
+MDA and MDA_dense raise naming ROADMAP.md item A10 slice 2, and the CLIP
+family item A11.  As in xai_tpu, the ViT entries run in float32 whatever
+the context's dtype: only the batched path casts a ViT.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from .methods import ablation as AB
 from .methods import gradient as G
 from .methods import guided as GD
 from .methods.agi import agi
+from .methods.batch import (NOT_PORTED_ITEM, VIT_PATCH_MAPS, VIT_SLICE2,
+                            vit_saliency, vit_slice2_error)
 from .methods.gig import guided_ig
 from .methods.gradient import to_saliency
 from .methods.lime import lime
@@ -117,8 +123,33 @@ def _lime_entry(ctx):
                 device=ctx.x.device, dtype=ctx.dtype)
 
 
+# --- ViT family (evaluatePerturbation.py:192-266): the patch map upsampled
+# bilinearly, abs ---
+
+def _vit_entry(name):
+    def entry(c):
+        return vit_saliency(name, c.bundle, c.x[None], [c.target],
+                            c.img_hw)[0].cpu().numpy()
+    return entry
+
+
+def _vit_slice2(name):
+    def entry(c):
+        raise vit_slice2_error(name)
+    return entry
+
+
+VIT_METHODS: Dict[str, Callable] = {n: _vit_entry(n) for n in VIT_PATCH_MAPS}
+VIT_METHODS.update({n: _vit_slice2(n) for n in VIT_SLICE2})
+FAMILY_METHODS = {"cnn": CNN_METHODS, "vit": VIT_METHODS}
+
+
 def get_attribution(family: str, name: str, ctx: AttrContext) -> np.ndarray:
-    methods = {"cnn": CNN_METHODS}[family]
+    if family not in FAMILY_METHODS:
+        raise NotImplementedError(
+            f"{family} attributions are not ported yet (ROADMAP.md item "
+            f"{NOT_PORTED_ITEM.get(family, '?')})")
+    methods = FAMILY_METHODS[family]
     if name not in methods:
         raise KeyError(
             f"unknown {family} attribution '{name}'; available: "

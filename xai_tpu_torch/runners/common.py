@@ -18,27 +18,33 @@ import torch
 
 from ..convert.from_jax import load_params
 from ..methods.batch import batch_attribution
-from ..models import resnet
+from ..models import resnet, vit
 from ..models.common import ModelBundle, ModelMeta
 from ..ops.blur import make_blur_fn
-from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize
+from ..ops.preprocess import (IMAGENET_MEAN, IMAGENET_STD, VIT_MEAN, VIT_STD,
+                              normalize)
 from ..registry import AttrContext, get_attribution
 
 ATTR_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 # reference per-model batch sizes (evaluatePerturbation.py:627-677); the
-# CNN rows of xai_tpu's table
+# CNN and ViT rows of xai_tpu's table
 MODEL_TABLE = {
     "R50": ("cnn", 50), "R101": ("cnn", 50), "R152": ("cnn", 50),
     "RNXT": ("cnn", 25),
+    "VIT16": ("vit", 25), "VIT32": ("vit", 50),
     # 1-block-per-stage ResNets for fast CPU runs of the full driver path:
-    # TINY_CNN at 224 px, TINY_R at 64 px (the driver-parity model)
-    "TINY_CNN": ("cnn", 50), "TINY_R": ("cnn", 50),
+    # TINY_CNN at 224 px, TINY_R at 64 px (the driver-parity model); and
+    # timm's vit_tiny_patch16_224 (192 wide, 3 heads)
+    "TINY_CNN": ("cnn", 50), "TINY_R": ("cnn", 50), "TINY_VIT": ("vit", 25),
 }
 
 # xai_tpu models whose family this package has not ported yet
-NOT_PORTED = {"VIT16": "A10", "VIT32": "A10", "TINY_VIT": "A10",
-              "CLIP16": "A11", "CLIP32": "A11"}
+NOT_PORTED = {"CLIP16": "A11", "CLIP32": "A11"}
+
+# each ported family's input normalization (xai_tpu's family_stats)
+FAMILY_STATS = {"cnn": (IMAGENET_MEAN, IMAGENET_STD),
+                "vit": (VIT_MEAN, VIT_STD)}
 
 
 def model_entry(model_name: str):
@@ -80,6 +86,11 @@ def build_bundle(model_name: str, params_path: Optional[str] = None,
     ``xai_tpu``-saved ``.npz`` if given, else a seeded random init."""
     device = resolve_device(device)
     family, batch = model_entry(model_name)
+    state = load_params(params_path) if params_path else None
+    if family == "vit":
+        arch = "vit_tiny_patch16_224" if model_name == "TINY_VIT" \
+            else model_name
+        return vit.make_bundle(arch, state, seed, batch, device)
     if model_name in ("TINY_CNN", "TINY_R"):
         module = resnet.ResNet(layers=(1, 1, 1, 1))
         meta = (ModelMeta(name="TINY_R", family="cnn", img_hw=64,
@@ -90,18 +101,25 @@ def build_bundle(model_name: str, params_path: Optional[str] = None,
                                                        model_name))
         meta = ModelMeta(name=model_name, family=family, batch_size=batch)
     resnet.init_random(module, seed)
-    if params_path:
-        module.load_state_dict(load_params(params_path))
+    if state is not None:
+        module.load_state_dict(state)
     return ModelBundle(meta, module.to(device))
+
+
+def family_stats(family: str):
+    """(mean, std) of a ported family's input normalization."""
+    if family not in FAMILY_STATS:
+        raise NotImplementedError(
+            f"{family} normalization is not ported yet (ROADMAP.md item "
+            f"A11)")
+    return FAMILY_STATS[family]
 
 
 def normalize_input(trans_img: np.ndarray, family: str,
                     device) -> torch.Tensor:
     """[H, W, C] in [0, 1] -> normalized [H, W, C] on ``device``."""
-    if family != "cnn":
-        raise NotImplementedError(f"{family} normalization is not ported")
     return normalize(torch.as_tensor(trans_img, device=device),
-                     IMAGENET_MEAN, IMAGENET_STD)
+                     *family_stats(family))
 
 
 def image_gates(bundle, x: torch.Tensor, blur_fn, gates: bool = True):

@@ -3,10 +3,10 @@ SSIM / Spearman / HOG-Spearman similarity -> CSV.
 
 Counterpart of ``xai_tpu/runners/evaluate_sanity.py`` with the same flags
 and CSV layout (the reference's XAI_Survey/evaluations/evaluateSanity.py).
-The randomized model is the CNN family's re-initialization (:108-145:
+The randomized model is the family's re-initialization (:108-145; CNN:
 kaiming-uniform on every conv weight, xavier-uniform on the dense weight,
-nothing else); the attribution target comes from each model's own
-prediction (:460-471).
+nothing else; ViT: standard normal on every parameter); the attribution
+target comes from each model's own prediction (:460-471).
 
 The randomized weights are drawn on a CPU ``torch.Generator`` seeded from
 ``--seed + 1`` and then copied to the device, so the card and the CPU run
@@ -16,8 +16,9 @@ stochastic method draws the same noise for both weight sets, as xai_tpu's
 one key does.
 
 Run: ``python -m xai_tpu_torch.runners.evaluate_sanity --model R101
---attr_func ig --synthetic 2 --image_count 2`` (add ``--image_batch 4
---attr_dtype bf16`` for the batched bf16 path).
+--attr_func ig --synthetic 2 --image_count 2`` (or ``--model VIT16
+--attr_func rollout``; add ``--image_batch 4 --attr_dtype bf16`` for the
+batched bf16 path).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      resolve_device)
 
 # the ROADMAP.md item that ports each family's randomization
-_FAMILY_ITEM = {"vit": "A10", "clip": "A11"}
+_FAMILY_ITEM = {"clip": "A11"}
 
 
 def randomize_family(bundle, family: str,
@@ -52,15 +53,21 @@ def randomize_family(bundle, family: str,
     kw, and every 2-D (dense) weight a xavier-uniform draw with bound
     sqrt(6 / (in + out)); FoldedBN scales and biases and the dense bias
     stay.  These weights are the images of xai_tpu's ``kernel`` leaves
-    under ``convert/from_jax.py``.  Draws come from ``generator`` in the
-    module's parameter order and are copied to the module's device."""
-    if family != "cnn":
+    under ``convert/from_jax.py``.  vit: every parameter (kernels, biases,
+    LayerNorm scales, ``cls_token``, ``pos_embed``) standard normal.
+    Draws come from ``generator`` in the module's parameter order and are
+    copied to the module's device."""
+    if family not in ("cnn", "vit"):
         raise NotImplementedError(
             f"{family} weight randomization is not ported yet (ROADMAP.md "
             f"item {_FAMILY_ITEM.get(family, '?')})")
     module = copy.deepcopy(bundle.module)
     with torch.no_grad():
         for name, w in module.named_parameters():
+            if family == "vit":
+                w.copy_(torch.randn(w.shape, generator=generator,
+                                    device=generator.device))
+                continue
             if not name.endswith(".weight") or w.dim() not in (2, 4):
                 continue
             if w.dim() == 4:
