@@ -8,9 +8,9 @@ the CUDA toolkit:
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. the card's name and power limit (nvidia-smi); which of PIL, h5py,
-   scikit-learn and matplotlib import (a phase that needs a missing one
-   is left to the CPU tests, and the line says so); float32 stays
+1. the card's name and power limit (nvidia-smi); which of PIL (and its
+   WebP encoder), h5py, scikit-learn and matplotlib import (a phase that
+   needs a missing one is left to the CPU tests, and the line says so); float32 stays
    float32 (TF32 off for cuDNN and cuBLAS);
 2. build every kernel in xai_tpu_torch/csrc with nvcc, all at once;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -65,8 +65,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1, reveal 15, quickshift 0); the sanity driver (rollout, t_attr at
    B=4 in bf16; SPR and HOG NaN only where a map is constant), the seg
    driver (rollout, t_attr at B=4), the image finder, the 11-name ViT
-   panel (exactly VIT_CX, TIS and MDA fail, naming A10 slice 2) and the
-   sweep's ViT rows (pert, sanity, seg x rollout, t_attr);
+   panel (no name fails) and the sweep's ViT rows (pert, sanity, seg x
+   rollout, t_attr); then the rest of the ViT family (ROADMAP A10 slice
+   2) on VIT16: TIS, VIT_CX, MDA and MDA_dense on one image each in
+   float32, TIS and VIT_CX in bf16, VIT_CX at --image_batch 4 in float32
+   and bf16 (MDA: the battery's 15 reveals and its rescoring's 18; blur
+   once a tried klen of its adaptive blur, twice above 63, the klen it
+   stopped at printed), MDA on a copy of VIT16 with one class's head bias
+   raised, where the adaptive blur must pass klen 63; MDA_dense through
+   the seg driver; imagenet_seg_eval with rollout and
+   Calibrate_Best_Possible; the sweep's slice-2 rows on VIT32 (pert,
+   sanity, seg x the four names);
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
@@ -89,6 +98,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    2e-3, bf16 rollout against float32 Spearman rho > 0.95; its widths at
    48 px as --model TINY_VIT: the randomized weights bit-equal, the
    sanity CSV and seg TXT (rollout, t_attr, t_attr at B=2) within 2e-3;
+   and, on the test ViT, TIS with shared centroids, ViT-CX with shared
+   noise (labels equal, or a merge at the threshold), MDA (picks equal up
+   to a first flipped pick that is a rounding-level tie), 3 epochs of
+   refine_attribution within 1e-4, the classic metrics within 1e-5 and
+   PIC's areas (where PIL's WebP encoder imports) within 1e-5;
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
    attribution of R101, LIME split by stage with CUDA events; then R101 at
    B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
@@ -99,7 +113,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    finder's images a second at --batch_size 100; then VIT16: each ViT
    name's s/image image by image and at B=4 in float32 and bf16 with
    peak memory, the battery image by image and at B=4, sanity-rollout
-   and seg-rollout per image, and the image finder's images a second.
+   and seg-rollout per image, and the image finder's images a second;
+   and TIS, VIT_CX, MDA and MDA_dense image by image (TIS and VIT_CX in
+   bf16 too) and VIT_CX at B=4 in float32 and bf16, with peak memory.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -227,6 +243,27 @@ def check_kernels(torch, dev, x_hwc):
           + ", ".join(f"{list(t.shape)} klen {k}" for t, k, _ in cases))
     if not err < BLUR_TOL:
         fail(f"blur kernel disagrees with its plain version: {err}")
+    # the fused widths of MDA's adaptive blur (35, 39, ..., 63, which the
+    # confident VIT16 copy and the VIT32 sweep reach), and 61: the tiles
+    # of klen 61 and 63 opt into more than 48 KiB of shared memory
+    by_klen = {}
+    for klen in sorted(set(range(35, 64, 4)) | {61}):
+        before = kblur.blur_planes.launches
+        got = kblur.blur_planes(planes, klen, float(klen))
+        if kblur.blur_planes.launches - before != 1:
+            fail(f"blur klen {klen} launched "
+                 f"{kblur.blur_planes.launches - before} kernels, not 1")
+        want = kblur.blur_planes_plain(planes, klen, float(klen))
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        by_klen[klen] = f"{e:.3g}"
+        if not (e < BLUR_TOL and bool(torch.isfinite(got).all())):
+            fail(f"blur kernel at klen {klen} disagrees with its plain "
+                 f"version: {e}")
+        err = max(err, e)
+    print(f"blur_planes {list(planes.shape)} fused, MDA's widths: max "
+          f"|kernel - plain| by klen {json.dumps(by_klen)} (tolerance "
+          f"{BLUR_TOL})")
     # wider than the fused kernel's instantiations (MDA grows klen to
     # 103, nsig with it): the two-launch path, up to klen 449, wider than
     # twice a 224-px plane
@@ -541,11 +578,13 @@ def synthetic_classes(torch, dev, n: int) -> list:
 
 
 def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
-                  batch, model="R101"):
+                  batch, model="R101", want=None):
     """Phase 4: the flagship driver on ``model``, counters zeroed just
     before and read just after.  A per-image path scores image by image
     (the class quota may skip the second); a batched path must score all
-    its images in full batches."""
+    its images in full batches.  ``want``: expected_launches()'s function,
+    for a path whose own choices set its launches (MDA's adaptive blur and
+    rescoring); the launches must then equal what it returns."""
     from xai_tpu_torch.runners import evaluate_perturbation as ep
 
     out_dir = os.path.join(out_dir, label)
@@ -587,11 +626,17 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     # which blur too) and 15 reveal launches; LIME segments its image(s)
     # in one quickshift launch
     flushes = scored // batch
+    if want is not None:
+        want = want()
+        if launches != want:
+            fail(f"the {label} main path launched {launches}, expected "
+                 f"{want}")
     if batch == 1:
         ok_blur = launches["blur_planes"] >= scored
     else:
         ok_blur = launches["blur_planes"] == flushes
-    want_reveal = REVEAL_PER_BATTERY * flushes
+    want_reveal = (REVEAL_PER_BATTERY * flushes if want is None
+                   else want["reveal_batch"])
     want_qs = flushes if attr_func == "lime" else 0
     if not ok_blur:
         fail(f"blur kernel launched {launches['blur_planes']} times on the "
@@ -1147,12 +1192,18 @@ def optional_packages() -> dict:
 
     have = {n: importlib.util.find_spec(n) is not None
             for n in OPTIONAL_PACKAGES}
+    have["webp"] = False
+    if have["PIL"]:
+        from PIL import features
+        have["webp"] = bool(features.check("webp"))
     skipped = [f"{what} (needs {n})" for n, what in
                (("h5py", "the --save_maps paths"),
-                ("matplotlib", "the qualitative grid's PNG"))
+                ("matplotlib", "the qualitative grid's PNG"),
+                ("webp", "the PIC check"))
                if not have[n]]
     print("optional packages: " + ", ".join(
-        f"{n} {'imports' if ok else 'missing'}" for n, ok in have.items())
+        f"{'PIL WebP encoder' if n == 'webp' else n} "
+        f"{'imports' if ok else 'missing'}" for n, ok in have.items())
         + ("; covered by the CPU tests only: " + ", ".join(skipped)
            if skipped else "; every driven phase runs"))
     return have
@@ -1161,10 +1212,12 @@ def optional_packages() -> dict:
 NO_LAUNCHES = {"blur_planes": 0, "reveal_batch": 0, "quickshift_parents": 0}
 
 
-def run_path(torch, label, fn, want: dict):
+def run_path(torch, label, fn, want):
     """Drive one path, every kernel counter zeroed just before and read
-    just after; fails unless each kernel launched as ``want`` says.
-    Returns (fn's result, the launches)."""
+    just after; fails unless each kernel launched as ``want`` says (a
+    dict, or a function that returns it once the path has run, for the
+    counts that the path's own choices set).  Returns (fn's result, the
+    launches)."""
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
@@ -1176,6 +1229,8 @@ def run_path(torch, label, fn, want: dict):
     total = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
     print(log.getvalue(), end="")
+    if callable(want):
+        want = want()
     if launches != want:
         fail(f"the {label} path launched {launches}, expected {want}")
     print(f"{label} path: {total:.3f} s, launches {json.dumps(launches)}")
@@ -1668,7 +1723,6 @@ VIT_PATHS = (
 # for the drivers (at 32 px HOG has no 3 x 3 block of 16 px cells)
 VIT32PX = dict(patch=8, embed_dim=32, depth=2, num_heads=4, mlp_ratio=2.0,
                num_classes=16, img_hw=32)
-VIT_SLICE2_PANEL = ["MDA", "TIS", "VIT_CX"]
 
 
 def model_classes(torch, dev, model: str, n: int) -> list:
@@ -1705,10 +1759,10 @@ def _spy(module, name, store, pick=lambda out: out):
 def drive_vit_driver_paths(torch, dev, out_dir, have) -> dict:
     """Phase 4, the other drivers on VIT16 at 224 px: sanity (rollout
     image by image, t_attr at B=4 in bf16), segmentation (rollout, t_attr
-    at B=4), the image finder, the 11-name ViT panel (exactly VIT_CX, TIS
-    and MDA fail, naming A10 slice 2) and the sweep's ViT rows (pert,
-    sanity, seg x rollout, t_attr); each through its entry point, with
-    its launches.  Returns the launches by path."""
+    at B=4), the image finder, the 11-name ViT panel (no name fails) and
+    the sweep's ViT rows (pert, sanity, seg x rollout, t_attr); each
+    through its entry point, with its launches.  Returns the launches by
+    path."""
     import numpy as np
 
     from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
@@ -1778,36 +1832,36 @@ def drive_vit_driver_paths(torch, dev, out_dir, have) -> dict:
     panels = []
     panel_maps = _spy(qg, "panel_maps", panels)
     try:
-        if have["matplotlib"]:
-            args = qg.build_parser().parse_args(
-                ["--model", "VIT16", "--synthetic", "1", "--output_dir",
-                 os.path.join(out_dir, "vit_qualitative")])
-            written, by_path["vit16_qualitative"] = run_path(
-                torch, "vit16_qualitative",
-                lambda: qg.generate(args, device=dev), NO_LAUNCHES)
-            if list(written.values()) != [VIT_SLICE2_PANEL]:
-                fail(f"ViT qualitative grid: {written}")
-        else:
-            from xai_tpu_torch.data.imagenet import ImageNetValStream
-            from xai_tpu_torch.runners.common import build_bundle
+        with expected_launches() as want:
+            if have["matplotlib"]:
+                args = qg.build_parser().parse_args(
+                    ["--model", "VIT16", "--synthetic", "1", "--output_dir",
+                     os.path.join(out_dir, "vit_qualitative")])
+                written, by_path["vit16_qualitative"] = run_path(
+                    torch, "vit16_qualitative",
+                    lambda: qg.generate(args, device=dev), want)
+                if list(written.values()) != [[]]:
+                    fail(f"ViT qualitative grid: {written}")
+            else:
+                from xai_tpu_torch.data.imagenet import ImageNetValStream
+                from xai_tpu_torch.runners.common import build_bundle
 
-            bundle = build_bundle("VIT16", device=dev)
-            item = next(iter(ImageNetValStream("", 224, synthetic=1)))
-            _, by_path["vit16_qualitative"] = run_path(
-                torch, "vit16_qualitative", lambda: qg.panel_maps(
-                    bundle, item, qg.VIT_PANEL, 0, dev), NO_LAUNCHES)
+                bundle = build_bundle("VIT16", device=dev)
+                item = next(iter(ImageNetValStream("", 224, synthetic=1)))
+                _, by_path["vit16_qualitative"] = run_path(
+                    torch, "vit16_qualitative", lambda: qg.panel_maps(
+                        bundle, item, qg.VIT_PANEL, 0, dev), want)
+            klens = list(want.klens)
     finally:
         qg.panel_maps = panel_maps
     maps, failed = panels[0]
-    if (sorted(failed) != VIT_SLICE2_PANEL
-            or not all("A10 slice 2" in e for e in failed.values())
-            or sorted(maps) != sorted(set(qg.VIT_PANEL)
-                                      - set(VIT_SLICE2_PANEL))
+    if (failed or sorted(maps) != sorted(qg.VIT_PANEL)
             or not all(np.isfinite(m).all() and m.shape == (224, 224)
                        for m in maps.values())):
         fail(f"ViT qualitative panel: failed {failed}, maps {sorted(maps)}")
-    print(f"vit16_qualitative: {len(maps)} of the {len(qg.VIT_PANEL)} ViT "
-          f"panel maps finite; failed, naming A10 slice 2: {sorted(failed)}")
+    print(f"vit16_qualitative: all {len(maps)} ViT panel maps finite, none "
+          f"failed (TIS, VIT_CX and MDA among them; MDA's blur stopped at "
+          f"klen {klens})")
 
     d = os.path.join(out_dir, "vit_sweep")
     args = sw.build_parser().parse_args(
@@ -1840,6 +1894,201 @@ def drive_vit_driver_paths(torch, dev, out_dir, have) -> dict:
                            r["scores"], list(r["scores"]))
     print("vit16_sweep: 6 manifest rows, all ok: " + ", ".join(
         f"{r['driver']}/{r['attr_func']} {r['seconds']} s" for r in manifest))
+    return by_path
+
+
+# --- the rest of the ViT family (ROADMAP A10 slice 2) and the library
+# metrics under it (A12 slice 2) ---
+
+SLICE2_NAMES = ("TIS", "VIT_CX", "MDA", "MDA_dense")
+# the flagship driver on VIT16: each name at --synthetic 2 in float32 (two
+# classes: both images score), TIS and VIT_CX on one image in bf16 too,
+# VIT_CX at B=4 in float32 and bf16; (label, flags, images,
+# --image_count, --image_batch, model) as MAIN_PATHS
+SLICE2_PATHS = (
+    [(f"vit16_{n}", ["--attr_func", n], 2, 2, 1, "VIT16")
+     for n in SLICE2_NAMES]
+    + [(f"vit16_{n}_bf16", ["--attr_func", n, "--attr_dtype", "bf16"], 1, 1,
+        1, "VIT16") for n in ("TIS", "VIT_CX")]
+    + [(f"vit16_VIT_CX_b4{d}", ["--attr_func", "VIT_CX"] + f, 4, 4000, 4,
+        "VIT16") for d, f in (("", []), ("_bf16", ["--attr_dtype",
+                                                    "bf16"]))])
+# chip_smoke's confident copy of VIT16: one class's head bias raised, so
+# that the blurred image keeps the target above 1 % and MDA's adaptive
+# blur grows klen past 63 (the blur's two-launch width), as the confident
+# real checkpoints do
+CONFIDENT_CLASS, CONFIDENT_BIAS = 7, 10.0
+
+
+def blur_width_launches(klen: int) -> int:
+    from xai_tpu_torch.kernels.blur import MAX_FUSED_KLEN
+    return 1 if klen <= MAX_FUSED_KLEN else 2
+
+
+def mda_blur_launches(klen: int) -> int:
+    """Blur launches of one MDA call whose adaptive blur stopped at
+    ``klen``: one a tried klen (31, 35, ...), then the insertion search's
+    start and the rescoring's substrate at the final klen."""
+    return (sum(blur_width_launches(k) for k in range(31, klen + 1, 4))
+            + 2 * blur_width_launches(klen))
+
+
+@contextlib.contextmanager
+def expected_launches():
+    """Spies on the port's own choices that set how often a path launches
+    each kernel: every ``batched_curves`` call (its chunks: one reveal
+    launch each), every battery (one blur launch), every adaptive blur of
+    MDA (the klen it stopped at) and every insertion prep of the MAS
+    calibration (one blur at klen 31).  Yields a function that returns
+    the launches the path should have made, with the klens in
+    ``.klens``."""
+    from xai_tpu_torch import registry
+    from xai_tpu_torch.methods import mas_calibrate
+    from xai_tpu_torch.metrics import curves
+
+    chunks, batteries, klens, preps = [], [], [], []
+    real_curves, real_prep = curves.batched_curves, mas_calibrate._prep
+
+    def counted_curves(apply_fn, starts, finishes, flips, targets, n_steps,
+                       chunk):
+        chunks.append(math.ceil((n_steps + 1) / chunk))
+        return real_curves(apply_fn, starts, finishes, flips, targets,
+                           n_steps, chunk)
+
+    def counted_prep(bundle, x, sal2d, mode, *a, **k):
+        preps.append(mode != "del")
+        return real_prep(bundle, x, sal2d, mode, *a, **k)
+
+    originals = [
+        (curves, "_battery", _spy(curves, "_battery", batteries)),
+        (registry, "adaptive_blur",
+         _spy(registry, "adaptive_blur", klens, lambda out: out[1])),
+        (curves, "batched_curves", real_curves),
+        (mas_calibrate, "_prep", real_prep)]
+    curves.batched_curves = counted_curves
+    mas_calibrate._prep = counted_prep
+
+    def want():
+        return {"blur_planes": len(batteries) + sum(preps) + sum(
+                    mda_blur_launches(k) for k in klens),
+                "reveal_batch": sum(chunks), "quickshift_parents": 0}
+
+    want.klens = klens
+    try:
+        yield want
+    finally:
+        for module, name, original in originals:
+            setattr(module, name, original)
+
+
+def confident_vit16(build):
+    """``build`` with VIT16's head bias of CONFIDENT_CLASS raised."""
+    def wrapped(*a, **k):
+        bundle = build(*a, **k)
+        if bundle.meta.name == "VIT16":
+            import torch
+            with torch.no_grad():
+                bundle.module.head.bias[CONFIDENT_CLASS] += CONFIDENT_BIAS
+        return bundle
+    return wrapped
+
+
+def run_slice2_path(torch, dev, out_dir, label, flags, n_images, count,
+                    batch, model, confident=False):
+    """Phase 4, a slice-2 name through the flagship driver: the checks of
+    run_main_path, with the launches that expected_launches() reads off
+    the path (MDA's adaptive klens and rescoring among them), and the klen
+    at which each MDA call stopped printed.  ``confident``: on VIT16's
+    confident copy (confident_vit16), where the adaptive blur must pass
+    klen 63."""
+    from xai_tpu_torch.runners import evaluate_perturbation as ep
+
+    build = ep.build_bundle
+    if confident:
+        ep.build_bundle = confident_vit16(build)
+    try:
+        with expected_launches() as want:
+            launches = run_main_path(torch, dev, out_dir, label, flags,
+                                     n_images, count, batch, model, want)
+    finally:
+        ep.build_bundle = build
+    klens = want.klens
+    if confident and not (klens and min(klens) > 63):
+        fail(f"{label}: the confident model's adaptive blur stopped at "
+             f"klen {klens}, not past 63")
+    if klens:
+        print(f"{label}: MDA's adaptive blur stopped at klen {klens}; "
+              f"{sum(k > 63 for k in klens)} of its calls grew past 63, "
+              f"where each blur takes two launches")
+    return launches
+
+
+def drive_slice2_driver_paths(torch, dev, out_dir) -> dict:
+    """Phase 4, the slice-2 names through the other drivers on VIT16:
+    MDA_dense through the seg driver, and the older seg driver
+    imagenet_seg_eval with rollout and with Calibrate_Best_Possible (slic
+    segments, 25 epochs of refine_attribution on rollout); then the
+    sweep's slice-2 rows on VIT32 (pert, sanity, seg x TIS, VIT_CX, MDA,
+    MDA_dense).  Launches by path."""
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import imagenet_seg_eval as se
+    from xai_tpu_torch.runners import sweep as sw
+
+    by_path = {}
+    d = os.path.join(out_dir, "vit16_seg_MDA_dense")
+    args = eg.build_parser().parse_args(
+        ["--model", "VIT16", "--attr_func", "MDA_dense", "--synthetic", "1",
+         "--output_dir", d])
+    with expected_launches() as want:
+        _, by_path["vit16_seg_MDA_dense"] = run_path(
+            torch, "vit16_seg_MDA_dense",
+            lambda: eg.evaluate_imagenet_seg(args, device=dev), want)
+    _finite_scores("vit16_seg_MDA_dense", _read_seg_txt(os.path.join(
+        d, "VIT16", "MDA_dense_0_images")), SEG_LINES)
+    print(f"vit16_seg_MDA_dense: MDA's blur stopped at klen {want.klens}")
+
+    for method in ("rollout", "Calibrate_Best_Possible"):
+        label = f"vit16_imagenet_seg_eval_{method}"
+        d = os.path.join(out_dir, label)
+        # random weights are never 60 % confident: keep every image
+        args = se.build_parser().parse_args(
+            ["--model", "VIT16", "--method", method, "--synthetic", "2",
+             "--acc_cutoff", "0", "--output_dir", d])
+        with expected_launches() as want:
+            _, by_path[label] = run_path(
+                torch, label, lambda: se.run(args, device=dev), want)
+        _finite_scores(label, _read_seg_txt(os.path.join(
+            d, f"VIT16_{method}.txt")), SEG_LINES)
+
+    d = os.path.join(out_dir, "vit32_slice2_sweep")
+    args = sw.build_parser().parse_args(
+        ["--drivers", "pert,sanity,seg", "--models", "VIT32", "--methods",
+         ",".join(SLICE2_NAMES), "--synthetic", "1", "--image_count", "1",
+         "--output_dir", d])
+    with expected_launches() as want:
+        records, by_path["vit32_slice2_sweep"] = run_path(
+            torch, "vit32_slice2_sweep",
+            lambda: sw.run_sweep(args, device=dev), want)
+    rows = [(r["driver"], r["attr_func"]) for r in records]
+    if rows != [(d, n) for d in ("pert", "sanity", "seg")
+                for n in SLICE2_NAMES] or not all(r["status"] == "ok"
+                                                  for r in records):
+        fail(f"VIT32 slice-2 sweep: {records}")
+    for r in records:
+        if r["driver"] == "sanity":
+            # the randomized ViT (every parameter N(0, 1)) saturates: a
+            # constant or 0/0 map gives NaN scores, in xai_tpu too
+            print(f"vit32_sweep sanity/{r['attr_func']} scores:",
+                  json.dumps(r["scores"]))
+            if list(r["scores"]) != list(SANITY_KEYS):
+                fail(f"VIT32 sweep sanity/{r['attr_func']}: {r['scores']}")
+        else:
+            _finite_scores(f"vit32_sweep {r['driver']}/{r['attr_func']}",
+                           r["scores"], list(r["scores"]))
+    print("vit32_slice2_sweep: 12 manifest rows, all ok; MDA's blur stopped "
+          f"at klen {want.klens}: " + ", ".join(
+              f"{r['driver']}/{r['attr_func']} {r['seconds']} s"
+              for r in records))
     return by_path
 
 
@@ -1925,6 +2174,361 @@ def check_vit_reference(torch, dev):
           f"; batched battery max |score delta| {bat:.3g} (< 2e-3); bf16 "
           f"rollout against float32 on the card, Spearman rho "
           f"{', '.join(f'{r:.4f}' for r in rho)} (> 0.95)")
+
+
+# a greedy pick that flips card vs CPU must be a rounding-level tie: the
+# two candidates' float32 responses within this of each other
+MDA_PICK_TIE = 1e-5
+
+
+def _grid_segments(hw: int = 32, n: int = 4):
+    import numpy as np
+    side = hw // n
+    return (np.arange(hw)[:, None] // side * n
+            + np.arange(hw)[None, :] // side).astype(np.int32)
+
+
+def _linkage_heights(sim):
+    import numpy as np
+    from scipy.cluster import hierarchy
+    from scipy.spatial.distance import squareform
+    dist = 1.0 - np.nan_to_num(sim)
+    np.fill_diagonal(dist, 0.0)
+    return hierarchy.linkage(squareform(dist, checks=False),
+                             method="complete")[:, 2]
+
+
+def _replay_prob(bundle, start, finish, seg, chosen, target) -> float:
+    """The target's float32 softmax on ``bundle`` once every segment in
+    ``chosen`` has been taken from ``finish`` into ``start``."""
+    import numpy as np
+    import torch
+
+    img = np.asarray(start).copy()
+    for s in chosen:
+        img = np.where((seg == s)[..., None], finish, img)
+    x = torch.as_tensor(img.transpose(2, 0, 1)[None].copy(),
+                        device=bundle.device)
+    return float(bundle.probs(x)[0, target])
+
+
+def first_flipped_pick(bundle, got, want, start, finish, seg, target,
+                       skip=(), cutoff_prob=None):
+    """The first round whose picks differ, or None; fails unless the two
+    picks' float32 responses (``bundle``'s, at the running image both runs
+    share up to that round, after ``skip``) are within MDA_PICK_TIE.  With
+    ``cutoff_prob`` (the insertion search's cutoff as a probability), one
+    run may stop a round before the other if its last response is within
+    MDA_PICK_TIE of the cutoff."""
+    got, want = [int(v) for v in got], [int(v) for v in want]
+    if got == want:
+        return None
+    short = min(len(got), len(want))
+    r = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             short)
+    chosen = list(skip) + got[:r]
+    if r == short:
+        last = _replay_prob(bundle, start, finish, seg, chosen, target)
+        if cutoff_prob is None or abs(last - cutoff_prob) > MDA_PICK_TIE:
+            fail(f"MDA picks differ in length only: {got} vs {want} "
+                 f"(response {last} at the shorter run's end, cutoff "
+                 f"{cutoff_prob})")
+        return r - 1
+    resp = [_replay_prob(bundle, start, finish, seg, chosen + [c], target)
+            for c in (got[r], want[r])]
+    if abs(resp[0] - resp[1]) > MDA_PICK_TIE:
+        fail(f"MDA pick {r} flipped card vs CPU, {got[r]} against "
+             f"{want[r]}, responses {resp}: not a rounding-level tie")
+    return r
+
+
+def check_mda_entry(torch, bundles, imgs, trans, targets, rel) -> list:
+    """get_attribution("vit", "MDA") card vs CPU on each image: the
+    adaptive blur (the test ViT's flat softmax grows klen past 63, to the
+    blur's two-launch width), bidirectional's prior, SLIC segments and the
+    3x abs.  The klens must agree; each greedy search's picks, insertion
+    then deletion, are held by the first-flip rule (the insertion search
+    may also stop a round apart at a cutoff tie), and the maps within
+    1e-4 where every pick agrees."""
+    import numpy as np
+
+    from xai_tpu_torch import registry as R
+    from xai_tpu_torch.methods import mda as M
+
+    runs = {}
+    for name, b in bundles.items():
+        runs[name] = []
+        real = M._greedy_search
+        for x, t in zip(imgs, targets):
+            searches, klens = [], []
+
+            def spy(bundle, start, finish, seg_map, *a, **k):
+                out = real(bundle, start, finish, seg_map, *a, **k)
+                searches.append(dict(
+                    start=start.float().cpu().numpy(),
+                    finish=finish.float().cpu().numpy(),
+                    seg=np.asarray(seg_map), picks=list(out[0]),
+                    skip=[int(v) for v in k.get("skip") or []],
+                    norm=k.get("norm_pair"), cutoff=k.get("cutoff")))
+                return out
+
+            adaptive = _spy(R, "adaptive_blur", klens, lambda out: out[1])
+            M._greedy_search = spy
+            try:
+                m = R.get_attribution("vit", "MDA", R.AttrContext(
+                    bundle=b, x=torch.as_tensor(x, device=b.device),
+                    trans_img=trans, target=t, img_hw=32))
+            finally:
+                M._greedy_search, R.adaptive_blur = real, adaptive
+            runs[name].append((m, searches, klens))
+    out = []
+    for i, t in enumerate(targets):
+        (mg, sg, kg), (mc, sc, kc) = runs["cuda"][i], runs["cpu"][i]
+        if kg != kc or len(sg) != len(sc):
+            fail(f"tiny ViT registry MDA image {i}: klens {kg} vs {kc}, "
+                 f"{len(sg)} vs {len(sc)} searches card vs CPU")
+        flip = None
+        for kind, a, c in zip(("insertion", "deletion"), sg, sc):
+            if a["skip"] != c["skip"]:
+                fail(f"tiny ViT registry MDA image {i}: the {kind} search "
+                     f"was seeded with {a['skip']} vs {c['skip']}")
+            cut = None
+            if c["norm"] is not None and c["cutoff"] is not None:
+                orig, base = c["norm"]
+                cut = base + c["cutoff"] * abs(orig - base)
+            r = first_flipped_pick(bundles["cpu"], a["picks"], c["picks"],
+                                   c["start"], c["finish"], c["seg"], t,
+                                   skip=c["skip"], cutoff_prob=cut)
+            if r is not None:
+                flip = f"{kind} round {r}"
+                break
+        if flip is None:
+            err = rel(mg, mc)
+            if not err < 1e-4:
+                fail(f"tiny ViT registry MDA image {i} card vs CPU: {err}")
+            out.append(f"klen {kc[0]}: {err:.3g}")
+        else:
+            out.append(f"klen {kc[0]}: flip at {flip}")
+    return out
+
+
+def check_slice2_reference(torch, dev, have):
+    """Phase 5, TIS, ViT-CX, MDA, refine_attribution, the classic metrics
+    and PIC on xai_tpu's 32 px test ViT, card vs CPU in float32, to the
+    CPU tests' tolerances: TIS with shared centroids (1e-4); ViT-CX with
+    shared noise (labels equal, or a merge within 1e-5 of the 0.1
+    threshold; maps 1e-4); MDA with grid segments (insertion picks equal
+    up to a first flipped pick that is a rounding-level tie; maps 1e-4
+    where the picks agree); refine_attribution, 3 epochs (1e-4); MAS, RISE,
+    AIC, MoRF and Monotonicity curves (1e-5); PIC's SIC and AIC areas
+    (1e-5, where PIL's WebP encoder imports)."""
+    import numpy as np
+
+    from xai_tpu_torch.methods import mas_calibrate as MC
+    from xai_tpu_torch.methods import mda as M
+    from xai_tpu_torch.methods import tis as T
+    from xai_tpu_torch.methods import vit_cx as X
+    from xai_tpu_torch.metrics import classic as K
+    from xai_tpu_torch.ops.blur import make_blur_fn
+
+    cpu = torch.device("cpu")
+    rs = np.random.RandomState(2)
+    imgs = rs.randn(3, 32, 32, 3).astype(np.float32)
+    trans = np.random.RandomState(3).rand(32, 32, 3).astype(np.float32)
+    base = np.abs(rs.randn(32, 32, 3)).astype(np.float32)
+    sal = rs.rand(32, 32).astype(np.float32)
+    cent = np.random.RandomState(4).rand(64, 16).astype(np.float32)
+    targets = [3, 0, 11]
+    seg = _grid_segments()
+    prior = np.abs(np.random.RandomState(5).randn(32, 32, 3)).astype(
+        np.float32)
+    bundles = {"cuda": tiny_vit(torch, dev), "cpu": tiny_vit(torch, cpu)}
+    out = {}
+    for name, b in bundles.items():
+        xs = torch.as_tensor(imgs, device=b.device)
+        r = {}
+        r["tis"] = np.stack([T.tis(b, x, t, n_masks=64, centroids=cent)
+                             .cpu().numpy() for x, t in zip(xs, targets)])
+        _, sims, _ = X._masks_and_sim(b, xs.permute(0, 3, 1, 2).contiguous())
+        r["sims"] = sims.cpu().numpy()
+        r["labels"] = [X.cluster_host(m, 0.1) for m in r["sims"]]
+        r["ins"] = [M.find_insertion_patches(
+            b, x, prior, seg, make_blur_fn(31, 31.0), 16, t)
+            for x, t in zip(xs, targets)]
+        r["mda"] = np.stack([M.mda(b, trans, x, prior, 16,
+                                   make_blur_fn(31, 31.0), t, segments=seg)
+                             for x, t in zip(xs, targets)])
+        r["refine"] = MC.refine_attribution(b, xs[0], base, epochs=3)
+        for cls, mode in (("MASMetric", "ins"), ("MASMetric", "del"),
+                          ("RISEMetric", "ins"), ("AICMetric", "del"),
+                          ("PositiveNegativePerturbation", "morf"),
+                          ("MonotonicityMetric", "positive")):
+            m = getattr(K, cls)(b, 32 * 32, mode, 32, make_blur_fn(31, 31.0))
+            r[cls, mode] = m.single_run(xs[0], sal)
+        out[name] = r
+    gpu, ref = out["cuda"], out["cpu"]
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / (np.abs(b).max() or 1.0))
+
+    report = {"TIS": rel(gpu["tis"], ref["tis"])}
+    if not report["TIS"] < 1e-4:
+        fail(f"tiny ViT TIS card vs CPU: {report['TIS']}")
+    cx = []
+    for i, (lg, lc) in enumerate(zip(gpu["labels"], ref["labels"])):
+        if not np.array_equal(lg, lc):
+            near = float(np.abs(_linkage_heights(ref["sims"][i]) - 0.1)
+                         .min())
+            if near > 1e-5:
+                fail(f"tiny ViT ViT-CX image {i}: labels differ card vs CPU "
+                     f"with no merge near the threshold ({near})")
+            cx.append(f"image {i} labels flip at a merge {near:.2g} from "
+                      f"the threshold")
+            continue
+        noise = (np.random.RandomState(i).randn(int(lc.max()) + 1, 32, 32, 3)
+                 * 0.1).astype(np.float32)
+        maps = [X.vit_cx(b, torch.as_tensor(imgs[i], device=b.device),
+                         targets[i], noise=noise)
+                for b in (bundles["cuda"], bundles["cpu"])]
+        err = rel(*maps)
+        if not err < 1e-4:
+            fail(f"tiny ViT ViT-CX image {i} card vs CPU: {err}")
+        cx.append(f"{err:.3g}")
+    report["VIT_CX"] = cx
+    flips = []
+    for i in range(3):
+        blurred = make_blur_fn(31, 31.0)(torch.as_tensor(
+            imgs[i]).permute(2, 0, 1)[None])[0].permute(1, 2, 0).numpy()
+        r = first_flipped_pick(bundles["cpu"], gpu["ins"][i][0],
+                               ref["ins"][i][0], blurred, imgs[i], seg,
+                               targets[i])
+        flips.append(r)
+        if r is None:
+            err = rel(gpu["mda"][i], ref["mda"][i])
+            if not err < 1e-4:
+                fail(f"tiny ViT MDA image {i} card vs CPU: {err}")
+    report["MDA"] = [f"{rel(g, c):.3g}" if f is None else f"flip at {f}"
+                     for g, c, f in zip(gpu["mda"], ref["mda"], flips)]
+    report["MDA entry"] = check_mda_entry(torch, bundles, imgs, trans,
+                                          targets, rel)
+    report["refine"] = rel(gpu["refine"], ref["refine"])
+    if not report["refine"] < 1e-4:
+        fail(f"tiny ViT refine_attribution card vs CPU: {report['refine']}")
+    worst = 0.0
+    for key in ref:
+        if isinstance(key, tuple):
+            for g, c in zip(gpu[key], ref[key]):
+                d = float(np.abs(np.asarray(g, np.float64)
+                                 - np.asarray(c, np.float64)).max())
+                worst = max(worst, d)
+    report["classic"] = worst
+    if not worst < 1e-5:
+        fail(f"tiny ViT classic metrics card vs CPU: {worst}")
+    if have["webp"]:
+        from xai_tpu_torch.metrics import pic as P
+        img01 = np.random.RandomState(6).rand(32, 32, 3).astype(np.float32)
+        mask = P.generate_random_mask(32, 32, 0.05,
+                                      rng=np.random.RandomState(7))
+        aucs = [[r.auc for r in P.compute_both_metrics(
+            b, img01, sal, mask, normalize_fn=lambda v: (v - 0.5) / 0.5)]
+            for b in (bundles["cuda"], bundles["cpu"])]
+        report["PIC"] = max(abs(a - c) for a, c in zip(*aucs))
+        if not report["PIC"] < 1e-5:
+            fail(f"tiny ViT PIC card vs CPU: {aucs}")
+    else:
+        report["PIC"] = "skipped (no PIL WebP encoder)"
+    print("tiny ViT 32 px slice 2, card vs CPU (max |delta| / CPU max): "
+          f"TIS {report['TIS']:.3g} (< 1e-4); ViT-CX {report['VIT_CX']} "
+          f"(< 1e-4); MDA maps {report['MDA']} (< 1e-4), insertion picks "
+          f"{[p[0].tolist() for p in gpu['ins']]}; registry MDA "
+          f"{report['MDA entry']} (< 1e-4); refine_attribution "
+          f"{report['refine']:.3g} (< 1e-4); classic metrics max |delta| "
+          f"{report['classic']:.3g} (< 1e-5); PIC areas {report['PIC']}")
+
+
+def vit_forward_flops(cfg, tokens: int) -> float:
+    """2 x the multiply-adds of one ViT forward that keeps ``tokens``
+    tokens, by the config's shapes: the patch embedding (of every patch:
+    TIS drops tokens after it), a block's qkv and projection (8 N D^2),
+    MLP (4 r N D^2) and two attention products (4 N^2 D), the head."""
+    d, n = cfg.embed_dim, tokens
+    block = (8 + 4 * cfg.mlp_ratio) * n * d * d + 4 * n * n * d
+    return (2 * (cfg.tokens - 1) * 3 * cfg.patch ** 2 * d
+            + cfg.depth * block + 2 * d * cfg.num_classes)
+
+
+def time_warm_slice2(torch, dev, card):
+    """Phase 6, the slice-2 names on VIT16, warm (the driver paths ran
+    them before), with CUDA events and peak memory: each name image by
+    image through the registry in float32, TIS and VIT_CX in bf16, VIT_CX
+    at B=4 in float32 and bf16 (batch_attribution); each call's forward
+    rows and their FLOP by the model's shapes; MDA's klen printed."""
+    import numpy as np
+
+    from xai_tpu_torch import registry
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.models import vit as tvit
+    from xai_tpu_torch.registry import AttrContext, get_attribution
+    from xai_tpu_torch.runners.common import (build_bundle, normalize_input,
+                                              predict_classes)
+
+    bundle = build_bundle("VIT16", device=dev)
+    imgs = np.random.RandomState(0).rand(4, 224, 224, 3).astype(np.float32)
+    xs = torch.stack([normalize_input(im, "vit", dev) for im in imgs])
+    targets = predict_classes(bundle, xs)
+    gens = [torch.Generator(dev).manual_seed(i) for i in range(4)]
+    calls = []
+    for name in SLICE2_NAMES:
+        for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            if dtype is not None and name.startswith("MDA"):
+                continue
+            ctx = AttrContext(bundle=bundle, x=xs[0], trans_img=imgs[0],
+                              target=targets[0], generator=gens[0],
+                              dtype=dtype)
+            calls.append((name, f"image {dname}", lambda ctx=ctx, n=name:
+                          get_attribution("vit", n, ctx)[None], 1))
+    for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        calls.append(("VIT_CX", f"b4 {dname}", lambda dtype=dtype: (
+            batch_attribution("vit", "VIT_CX", bundle, xs, imgs, targets,
+                              gens, dtype=dtype)), 4))
+    klens = []
+    adaptive = _spy(registry, "adaptive_blur", klens, lambda out: out[1])
+    # every forward's rows and tokens, for the work each name does
+    forwards = []
+    forward = tvit.VisionTransformer.forward
+
+    def counted(self, x, *a, token_indices=None, **k):
+        n = self.cfg.tokens if token_indices is None \
+            else token_indices.shape[-1] + 1
+        forwards.append((x.shape[0], n))
+        return forward(self, x, *a, token_indices=token_indices, **k)
+
+    tvit.VisionTransformer.forward = counted
+    rows = []
+    try:
+        for name, kind, fn, b in calls:
+            forwards.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            sal, sec = _event_s(torch, fn)
+            if not (np.isfinite(sal).all() and sal.shape[0] == b):
+                fail(f"warm VIT16 {name} {kind}: bad saliency")
+            flop = sum(r * vit_forward_flops(bundle.extras, n)
+                       for r, n in forwards)
+            rows.append((name, kind, sec / b,
+                         torch.cuda.max_memory_allocated(dev),
+                         sum(r for r, _ in forwards) / b, flop / b))
+    finally:
+        registry.adaptive_blur = adaptive
+        tvit.VisionTransformer.forward = forward
+    for name, kind, sec, peak, rows_b, flop in rows:
+        print(f"VIT16 warm {name} {kind}: {sec:.4f} s/image (peak memory "
+              f"{peak / 2 ** 30:.2f} GiB); {rows_b:.0f} forward rows an "
+              f"image, {flop / 1e12:.2f} TFLOP an image by the model's "
+              f"shapes, {flop / sec / 1e12:.1f} TFLOP/s")
+    print("VIT16 warm slice 2, s/image (CUDA events): " + ", ".join(
+        f"{n} {k} {s:.4f}" for n, k, s, *_ in rows)
+        + f"; MDA's adaptive blur stopped at klen {klens} on {card}")
 
 
 @contextlib.contextmanager
@@ -2159,18 +2763,27 @@ def main() -> None:
         by_path.update(drive_driver_paths(torch, dev, out_dir, classes,
                                           have))
         by_path.update(drive_vit_driver_paths(torch, dev, out_dir, have))
+        for label, *path in SLICE2_PATHS:
+            by_path[label] = run_slice2_path(torch, dev, out_dir, label,
+                                             *path)
+        by_path["vit16_MDA_confident"] = run_slice2_path(
+            torch, dev, out_dir, "vit16_MDA_confident",
+            ["--attr_func", "MDA"], 1, 1, 1, "VIT16", confident=True)
+        by_path.update(drive_slice2_driver_paths(torch, dev, out_dir))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)
     check_tiny_drivers(torch, dev)
     check_vit_reference(torch, dev)
     check_tiny_vit_drivers(torch, dev)
+    check_slice2_reference(torch, dev, have)
     bundle, per_image = time_warm_image(torch, dev, card)
     time_warm_batch(torch, dev, card, bundle, per_image)
     time_warm_a8(torch, dev, card, bundle)
     time_warm_drivers(torch, dev, card, bundle)
     del bundle
     time_warm_vit(torch, dev, card)
+    time_warm_slice2(torch, dev, card)
 
     for row in rows:
         name = row["name"]

@@ -223,13 +223,42 @@ def test_a8_float64_copy_keeps_float64_scores(twins32, name, monkeypatch):
 
 
 @pytest.mark.parametrize("family,name,item", [
-    ("vit", "VIT_CX", "A10 slice 2"), ("clip", "eclip", "A11")])
-def test_unported_batch_names_raise(twins, family, name, item):
+    ("vit", "VIT_CX", None), ("clip", "eclip", "A11")])
+def test_unported_batch_names_raise(twins, tmp_path, family, name, item):
+    """The CLIP family raises naming A11.  VIT_CX, which raised naming
+    A10 slice 2, now runs batched: on xai_tpu's 32 px test ViT its batch
+    with injected noise matches xai_tpu's vit_cx image by image (3|map|,
+    as the entries give it)."""
     _, tb, xs, targets, _ = twins
     assert TB.has_batch_impl(family, name)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        TB.batch_attribution(family, name, tb, xs, xs, targets,
-                             _generators(), img_hw=HW)
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md item {item}"):
+            TB.batch_attribution(family, name, tb, xs, xs, targets,
+                                 _generators(), img_hw=HW)
+        return
+    import jax.numpy as jnp
+    from xai_tpu.methods import vit_cx as JX
+    from xai_tpu_torch.methods import vit_cx as TX
+    from test_torch_vit import tiny_vit_twins
+
+    jb, vb = tiny_vit_twins(str(tmp_path / "vit.npz"))
+    imgs = np.random.RandomState(2).randn(2, 32, 32, 3).astype(np.float32)
+    noise = []
+    for i, x in enumerate(imgs):
+        _, tri, _ = JX._masks_and_sim_jit(jb.apply_taps, jb.params,
+                                          jnp.asarray(x)[None], 32)
+        k = int(JX._cluster_host(np.asarray(tri), 32, 0.1).max()) + 1
+        noise.append((np.random.RandomState(i).randn(k, 32, 32, 3) * 0.1)
+                     .astype(np.float32))
+    got = 3.0 * np.abs(TX.vit_cx_batch(vb, imgs, [3, 0], noise=noise))
+    assert TB.batch_attribution("vit", name, vb, imgs, imgs, [3, 0], [
+        torch.Generator().manual_seed(i) for i in range(2)],
+        img_hw=32).shape == (2, 32, 32)
+    for i in range(2):
+        ref = 3.0 * np.abs(JX.vit_cx(jb, imgs[i], [3, 0][i],
+                                     noise=noise[i]))
+        assert np.abs(got[i] - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
 def test_unbatched_names_return_none(twins):

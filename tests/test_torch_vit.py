@@ -60,10 +60,12 @@ def redraw(params, rs, scale=0.05):
                               .astype(np.float32)), params)
 
 
-def tiny_vit_twins(path, params=None):
-    """(xai_tpu bundle, port bundle) of the 32 px ViT: xai_tpu's init at
-    PRNGKey(0) (or ``params``), carried through ``.npz`` at ``path``."""
-    cfg = jvit.ViTConfig(**CFG32)
+def tiny_vit_twins(path, params=None, cfg=CFG32):
+    """(xai_tpu bundle, port bundle) of the 32 px ViT (or ``cfg``):
+    xai_tpu's init at PRNGKey(0) (or ``params``), carried through
+    ``.npz`` at ``path``."""
+    cfg_dict = cfg
+    cfg = jvit.ViTConfig(**cfg_dict)
     model = jvit.VisionTransformer(cfg)
     if params is None:
         params = model.init(jax.random.PRNGKey(0),
@@ -76,9 +78,11 @@ def tiny_vit_twins(path, params=None):
         apply_taps=lambda p, x: model.apply({"params": p}, x, taps=True),
         apply_probed=lambda p, x, pr: model.apply({"params": p}, x,
                                                   probes=pr, taps=True),
+        apply_tokens=lambda p, x, ti: model.apply({"params": p}, x,
+                                                  token_indices=ti),
         extras=cfg)
     save_params(params, path)
-    module = tvit.VisionTransformer(tvit.ViTConfig(**CFG32))
+    module = tvit.VisionTransformer(tvit.ViTConfig(**cfg_dict))
     module.load_state_dict(load_params(path))
     tb = ModelBundle(ModelMeta(name="tinyvit", family="vit", img_hw=32,
                                num_classes=16, num_patches=4, batch_size=8,

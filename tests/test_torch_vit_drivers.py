@@ -12,6 +12,7 @@ randomizer, so both drivers attribute the same two models.
 """
 import copy
 import csv
+import json
 import os
 
 import jax
@@ -238,39 +239,120 @@ def test_image_finder_mask_matches_xai_tpu(tmp_path, params_path):
     assert got.tolist() == ref.tolist() == [1, 0] * 3
 
 
-def test_vit_panel_fails_only_the_slice2_names(params_path):
-    """The 11-name ViT panel: VIT_CX, TIS and MDA fail naming A10 slice 2;
-    every other map is the registry's."""
-    bundle = TC.build_bundle("TINY_VIT", params_path, device="cpu")
+# --- TIS, VIT_CX, MDA and MDA_dense through the drivers ---
+
+# TIS draws its 1024 initial centroids without replacement from the
+# depth x width activation rows, so its model needs 1024 of them (the
+# 32 px test ViT has 64): the test ViT's patches at 4 blocks of 256.
+# With as many masks as rows every row is its own centroid, whatever the
+# draw, so the two packages' TIS maps agree without injected randomness.
+CFG_TIS = dict(CFG32, embed_dim=256, depth=4)
+
+
+@pytest.fixture()
+def tis_vit(tmp_path, monkeypatch):
+    """--model TINY_VIT as CFG_TIS in both packages; its params' path."""
+    monkeypatch.setitem(jvit.CONFIGS, "vit_tiny_patch16_224",
+                        jvit.ViTConfig(**CFG_TIS))
+    monkeypatch.setitem(tvit.CONFIGS, "vit_tiny_patch16_224",
+                        tvit.ViTConfig(**CFG_TIS))
+    return save_params(jax_build_bundle("TINY_VIT", seed=2).params,
+                       str(tmp_path / "tis_vit.npz"))
+
+
+@pytest.fixture()
+def shared_vit_cx_noise(monkeypatch):
+    """ViT-CX's noise, injected into both packages: the k-th image either
+    package attributes draws numpy's RandomState(k) at its cluster
+    count."""
+    from xai_tpu.methods import vit_cx as JX
+    from xai_tpu_torch.methods import vit_cx as TX
+
+    def noise(k, count):
+        return (np.random.RandomState(len(count)).randn(k, 32, 32, 3)
+                * 0.1).astype(np.float32)
+
+    def jax_vit_cx(bundle, x, target=None, key=None, dtype=None,
+                   count=[], real=JX.vit_cx):
+        _, tri, _ = JX._masks_and_sim_jit(bundle.apply_taps, bundle.params,
+                                          jax.numpy.asarray(x)[None], 32)
+        k = int(JX._cluster_host(np.asarray(tri), bundle.extras.embed_dim,
+                                 0.1).max()) + 1
+        count.append(None)
+        return real(bundle, x, target, noise=noise(k, count), dtype=dtype)
+
+    def torch_vit_cx(bundle, x, target=None, generator=None, dtype=None,
+                     count=[], real=TX.vit_cx):
+        sim = TX._masks_and_sim(bundle, x.permute(2, 0, 1)[None])[1]
+        k = int(TX.cluster_host(sim[0].numpy(), 0.1).max()) + 1
+        count.append(None)
+        return real(bundle, x, target, noise=noise(k, count), dtype=dtype)
+
+    monkeypatch.setattr(JX, "vit_cx", jax_vit_cx)
+    monkeypatch.setattr(TX, "vit_cx", torch_vit_cx)
+
+
+def test_vit_panel_fails_only_the_slice2_names(tis_vit):
+    """The 11-name ViT panel (named when VIT_CX, TIS and MDA still failed,
+    naming A10 slice 2): now no name fails; every map is the registry's
+    with the panel's generator, and MDA's (no randomness) xai_tpu's."""
+    from xai_tpu.registry import AttrContext as JCtx
+    from xai_tpu.registry import get_attribution as jax_get_attribution
+
+    bundle = TC.build_bundle("TINY_VIT", tis_vit, device="cpu")
     item = next(iter(ImageNetValStream("", 32, synthetic=1)))
     maps, failed = TQ.panel_maps(bundle, item, TQ.VIT_PANEL, 3, "cpu")
-    assert sorted(failed) == ["MDA", "TIS", "VIT_CX"]
-    assert all("NotImplementedError" in e and "A10 slice 2" in e
-               for e in failed.values())
+    assert not failed and sorted(maps) == sorted(TQ.VIT_PANEL)
     x = TC.normalize_input(item.trans_img, "vit", "cpu")
     target = TC.predict_classes(bundle, x[None])[0]
     for name, m in maps.items():
         ref = get_attribution("vit", name, TC.attr_context(bundle, {
             "x": x, "trans_img": item.trans_img, "target": target,
-            "generator": None}))
+            "generator": TC.image_generator(3, item.index, "cpu")}))
         assert m.shape == (32, 32) and np.array_equal(m, ref), name
+    jb = jax_build_bundle("TINY_VIT", tis_vit)
+    ref = jax_get_attribution("vit", "MDA", JCtx(
+        bundle=jb, x=jax.numpy.asarray(x.numpy()), trans_img=item.trans_img,
+        target=target, key=jax.random.PRNGKey(0), img_hw=32))
+    np.testing.assert_allclose(maps["MDA"], ref,
+                               atol=1e-4 * float(np.abs(ref).max()))
 
 
-def test_sweep_runs_vit_rows(tmp_path):
-    """A ViT rollout row runs in every driver; a TIS row records its
-    A10 slice 2 error and the sweep goes on."""
-    argv = ["--drivers", "pert,sanity,seg", "--models", "TINY_VIT",
-            "--methods", "rollout,TIS", "--synthetic", "1", "--image_count",
-            "1", "--output_dir", str(tmp_path)]
-    records = TW.run_sweep(TW.build_parser().parse_args(argv), device="cpu")
+def test_sweep_runs_vit_rows(tmp_path, monkeypatch, tis_vit):
+    """The ViT rollout and TIS rows run in every driver (a TIS row named
+    A10 slice 2 before); the pert and seg rows' scores match xai_tpu's
+    sweep on the same weights (each driver's bundle built from
+    ``tis_vit``: the sweep takes no --params_path)."""
+    from xai_tpu.runners import sweep as JW
+
+    def same_weights(real):
+        return lambda model, params_path="", *a, **k: real(
+            model, params_path or tis_vit, *a, **k)
+
+    for mod in (JP, JG, TP, TS, TG):
+        monkeypatch.setattr(mod, "build_bundle",
+                            same_weights(mod.build_bundle))
+    argv = ["--models", "TINY_VIT", "--methods", "rollout,TIS",
+            "--synthetic", "1", "--image_count", "1"]
+    records = TW.run_sweep(TW.build_parser().parse_args(
+        argv + ["--drivers", "pert,sanity,seg", "--output_dir",
+                str(tmp_path / "torch")]), device="cpu")
     assert [(r["driver"], r["attr_func"], r["status"]) for r in records] == [
-        (d, m, "ok" if m == "rollout" else "error")
-        for d in ("pert", "sanity", "seg") for m in ("rollout", "TIS")]
+        (d, m, "ok") for d in ("pert", "sanity", "seg")
+        for m in ("rollout", "TIS")]
+    JW.run_sweep(JW.build_parser().parse_args(
+        argv + ["--drivers", "pert,seg", "--output_dir",
+                str(tmp_path / "jax")]))
+    with open(tmp_path / "jax" / "sweep_manifest.jsonl") as f:
+        ref = {(r["driver"], r["attr_func"]): r
+               for r in map(json.loads, f)}
     for r in records:
-        if r["status"] == "error":
-            assert "A10 slice 2" in r["error"], r["error"]
-        elif r["driver"] != "sanity":
-            assert all(np.isfinite(v) for v in r["scores"].values())
+        if r["driver"] == "sanity":
+            assert list(r["scores"]) == ["SSIM", "SPR", "HOG"]
+            continue
+        want = ref[r["driver"], r["attr_func"]]
+        assert want["status"] == "ok", want
+        _within(r["scores"], want["scores"], 2e-3)
 
 
 @pytest.mark.parametrize("model", ["VIT16", "VIT32", "TINY_VIT"])

@@ -33,7 +33,7 @@ from xai_tpu_torch.methods import vit_lrp as TL
 from xai_tpu_torch.models import vit as tvit
 from xai_tpu_torch.registry import VIT_METHODS, AttrContext, get_attribution
 
-from test_torch_vit import close, redraw, tiny_vit_twins
+from test_torch_vit import CFG32, close, redraw, tiny_vit_twins
 from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 VIT_NAMES = ["attn", "grad", "cam_attn", "n_rollout", "rollout", "t_attn",
@@ -215,19 +215,71 @@ def test_batch_bf16_runs_the_cast_copy(twins, name, monkeypatch):
             assert spearmanr(a.ravel(), b.ravel()).statistic > 0.95
 
 
+# TIS's 1024 masks need 1024 activation rows (depth x width; the test
+# ViT has 64): its case runs the test ViT's patches at 4 blocks of 256,
+# where every row is its own centroid whatever k-means draws
+CFG_TIS = dict(CFG32, embed_dim=256, depth=4)
+
+
+def _vit_cx_noise(monkeypatch):
+    """ViT-CX's noise injected into both packages' entries: the k-th call
+    draws numpy's RandomState(k) at its image's cluster count."""
+    from xai_tpu.methods import vit_cx as JX
+    from xai_tpu_torch.methods import vit_cx as TX
+
+    def noise(k, count):
+        count.append(None)
+        return (np.random.RandomState(len(count)).randn(k, 32, 32, 3)
+                * 0.1).astype(np.float32)
+
+    def jax_vit_cx(bundle, x, target=None, key=None, dtype=None, count=[],
+                   real=JX.vit_cx):
+        _, tri, _ = JX._masks_and_sim_jit(bundle.apply_taps, bundle.params,
+                                          jnp.asarray(x)[None], 32)
+        k = int(JX._cluster_host(np.asarray(tri), 32, 0.1).max()) + 1
+        return real(bundle, x, target, noise=noise(k, count), dtype=dtype)
+
+    def torch_vit_cx(bundle, x, target=None, generator=None, dtype=None,
+                     count=[], real=TX.vit_cx):
+        sim = TX._masks_and_sim(bundle, x.permute(2, 0, 1)[None])[1]
+        k = int(TX.cluster_host(sim[0].numpy(), 0.1).max()) + 1
+        return real(bundle, x, target, noise=noise(k, count), dtype=dtype)
+
+    monkeypatch.setattr(JX, "vit_cx", jax_vit_cx)
+    monkeypatch.setattr(TX, "vit_cx", torch_vit_cx)
+
+
 @pytest.mark.parametrize("name", ["TIS", "VIT_CX", "MDA", "MDA_dense"])
-def test_slice2_names_raise(twins, name):
+def test_slice2_names_raise(twins, tmp_path, monkeypatch, name):
+    """The four names that raised naming A10 slice 2 now run: the
+    registry entry matches xai_tpu's within 1e-4 (ViT-CX with injected
+    noise), and the batched entry is VIT_CX's batch (each row its single
+    run) or, for the names xai_tpu runs image by image, None."""
     jb, tb, xs = twins
-    with pytest.raises(NotImplementedError, match="A10 slice 2"):
-        get_attribution("vit", name, AttrContext(
-            bundle=tb, x=torch.from_numpy(xs[0]), trans_img=xs[0], target=1,
-            img_hw=32))
-    if name == "VIT_CX":
-        assert TB.has_batch_impl("vit", name)
-        with pytest.raises(NotImplementedError, match="A10 slice 2"):
-            TB.batch_attribution("vit", name, tb, xs[:2], xs[:2], [1, 2],
-                                 None, img_hw=32)
-    else:
+    if name == "TIS":
+        jb, tb = tiny_vit_twins(str(tmp_path / "tis.npz"), cfg=CFG_TIS)
+    _vit_cx_noise(monkeypatch)
+    trans = np.random.RandomState(3).rand(32, 32, 3).astype(np.float32)
+    x, t = xs[0], TARGETS[0]
+    ref = jax_get_attribution("vit", name, JCtx(
+        bundle=jb, x=jnp.asarray(x), trans_img=trans, target=t,
+        key=jax.random.PRNGKey(0), img_hw=32))
+    got = get_attribution("vit", name, AttrContext(
+        bundle=tb, x=torch.from_numpy(x), trans_img=trans, target=t,
+        img_hw=32))
+    assert got.shape == (32, 32) and np.isfinite(got).all()
+    close(got, ref, 1e-4)
+    monkeypatch.undo()
+    batched = TB.batch_attribution("vit", name, tb, xs[:2], xs[:2], [1, 2],
+                                   [torch.Generator().manual_seed(i)
+                                    for i in range(2)], img_hw=32)
+    if name != "VIT_CX":
         # xai_tpu runs them image by image: the caller loops the registry
-        assert TB.batch_attribution("vit", name, tb, xs[:2], xs[:2], [1, 2],
-                                    None, img_hw=32) is None
+        assert batched is None
+        return
+    for i in range(2):
+        single = get_attribution("vit", name, AttrContext(
+            bundle=tb, x=torch.from_numpy(xs[i]), trans_img=xs[i],
+            target=i + 1, img_hw=32,
+            generator=torch.Generator().manual_seed(i)))
+        close(batched[i], single, 1e-5)

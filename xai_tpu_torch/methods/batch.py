@@ -12,8 +12,8 @@ takes them; gig and agi run their batched loops; lime goes through
 ``lime_batch``.  rise and xrai have no batched form, in xai_tpu either.
 The 11 ViT names run their explainers (``methods/vit_explain.py``,
 ``methods/vit_lrp.py``) on the batch, every per-image reduction per
-image; VIT_CX comes with ROADMAP.md item A10 slice 2, and TIS and MDA,
-which xai_tpu runs image by image, return None.
+image; VIT_CX runs ``vit_cx_batch`` with each image's generator; TIS,
+MDA and MDA_dense, which xai_tpu runs image by image, return None.
 
 Outputs are final ``[B, H, W]`` float32 numpy saliencies, post-processed
 as the single-image registry entries are, so the driver's battery takes
@@ -49,8 +49,6 @@ BATCH_NAMES = {
 }
 # the ROADMAP.md item that ports each family still to come
 NOT_PORTED_ITEM = {"clip": "A11"}
-# the ViT names whose methods come with ROADMAP.md item A10 slice 2
-VIT_SLICE2 = ("TIS", "VIT_CX", "MDA", "MDA_dense")
 # production driver constants (evaluatePerturbation.py:94-97, 164-176),
 # overridable through batch_attribution(opts=...) for small shapes
 _DEFAULT_OPTS = {
@@ -63,11 +61,6 @@ _DEFAULT_OPTS = {
 
 def has_batch_impl(family: str, name: str) -> bool:
     return name in BATCH_NAMES.get(family, ())
-
-
-def vit_slice2_error(name: str) -> NotImplementedError:
-    return NotImplementedError(f"vit attribution '{name}' is not ported yet "
-                               "(ROADMAP.md item A10 slice 2)")
 
 
 # the 11 ViT names of xai_tpu's registry (registry_vit.py, batch.py
@@ -216,18 +209,22 @@ def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
     overrides the production method constants (``_DEFAULT_OPTS``).
 
     Returns None when xai_tpu has no batched implementation either (rise,
-    xrai, TIS, MDA), so that the caller loops the per-image path.  VIT_CX
-    and the CLIP family raise ``NotImplementedError`` naming the
-    ROADMAP.md item that ports them.  A ViT name runs its explainer on
-    the batch, in ``dtype`` on the bundle's cast copy."""
+    xrai, TIS, MDA, MDA_dense), so that the caller loops the per-image
+    path.  The CLIP family raises ``NotImplementedError`` naming the
+    ROADMAP.md item that ports it.  A ViT name runs its explainer on the
+    batch, in ``dtype`` on the bundle's cast copy."""
     if family in NOT_PORTED_ITEM:
         raise NotImplementedError(
             f"batched {family} attribution '{name}' is not ported yet "
             f"(ROADMAP.md item {NOT_PORTED_ITEM[family]})")
-    if family == "vit" and name == "VIT_CX":
-        raise vit_slice2_error(name)
     if not has_batch_impl(family, name):
         return None
+    if family == "vit" and name == "VIT_CX":
+        from .vit_cx import vit_cx_batch
+        # registry parity: 3 * |map| (the driver abs-sums the 3-channel
+        # broadcast); each image draws its noise from its own generator
+        return 3.0 * np.abs(vit_cx_batch(bundle, xs, targets,
+                                         generators=generators, dtype=dtype))
     opts = {**_DEFAULT_OPTS, **(opts or {})}
     if name == "lime":
         from .lime import lime_batch

@@ -15,6 +15,7 @@ battery is the batch of one.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -22,6 +23,18 @@ import torch
 
 from ..kernels.reveal import reveal_batch
 from ..ops.stats import auc_np, entropy_bits, spearman_np
+
+
+@dataclasses.dataclass
+class CurveOutputs:
+    """Raw per-step curve data for one (start, finish, order) pass."""
+
+    target_prob: np.ndarray      # [n_steps+1] softmax prob of target class
+    top1_is_target: np.ndarray   # [n_steps+1] 0/1
+    entropy: np.ndarray          # [n_steps+1] bits
+    original_pred: float         # target prob of the untouched input
+    baseline_pred: float         # target prob of the fully-substituted input
+    baseline_top1: float         # top-1-is-target of the substituted input
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +58,26 @@ def pixel_flip_steps(saliency: np.ndarray, step_size: int,
     flip = np.empty(hw, dtype=np.int32)
     flip[order] = np.arange(hw, dtype=np.int32) // step_size + 1
     return flip
+
+
+def patch_flip_steps(saliency: np.ndarray, patch_mask: np.ndarray,
+                     descending: bool = True) -> np.ndarray:
+    """Patch-ranked variant (MASTestFunctions.py:213-223): patches ordered by
+    mean saliency; one patch flips per step, so the step count is the
+    number of patches."""
+    flat = np.asarray(saliency).reshape(-1)
+    pm = np.asarray(patch_mask).reshape(-1)
+    n_seg = len(np.unique(pm))
+    seg_sal = np.zeros(n_seg)
+    for i in range(n_seg):
+        seg_sal[i] = flat[pm == i].mean()
+    if descending:
+        order = np.flip(np.argsort(seg_sal, axis=0), axis=-1)
+    else:
+        order = np.argsort(seg_sal, axis=0)
+    seg_step = np.empty(n_seg, dtype=np.int32)
+    seg_step[order] = np.arange(n_seg, dtype=np.int32) + 1
+    return seg_step[pm]
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +125,58 @@ def _battery(apply_fn, blur_fn, x, desc, asc, n_steps: int, chunk: int,
     dele = batched_curves(apply_fn, x, zeros, desc, targets, n_steps, chunk)
     lerf = batched_curves(apply_fn, x, zeros, asc, targets, n_steps, chunk)
     return ins, dele, lerf, targets
+
+
+@torch.no_grad()
+def reveal_curves(apply_fn, start, finish, flip_step, n_steps: int,
+                  target: int, chunk: int = 25, original_img=None,
+                  original_at: Optional[str] = None) -> CurveOutputs:
+    """One full reveal pass of one image: the batch of one of
+    :func:`batched_curves`, so every chunk is one reveal launch.
+
+    start/finish: ``[H, W, C]`` tensors on the model's device (start is the
+    step-0 image, finish the fully-substituted end state); flip_step:
+    ``[H*W]`` int flip steps.  ``original_at`` names the endpoint that is
+    the clean input ("start" for a deletion pass, "finish" for insertion):
+    its prediction is read off the curve, since step 0 is exactly
+    ``start`` and step ``n_steps`` exactly ``finish``.  ``original_img``
+    serves a caller whose original is neither endpoint (one extra
+    forward), or, with ``original_at`` omitted, infers the endpoint by
+    exact equality."""
+    h, w, _ = start.shape
+    dev = start.device
+    flips = torch.as_tensor(np.asarray(flip_step, np.int32).reshape(1, h, w),
+                            device=dev)
+    tgt = torch.tensor([int(target)], dtype=torch.int64, device=dev)
+    tp, top1, ent = batched_curves(
+        apply_fn, start.permute(2, 0, 1)[None].contiguous(),
+        finish.permute(2, 0, 1)[None].contiguous(), flips, tgt, n_steps,
+        chunk)
+    tp, top1, ent = (v[0].float().cpu().numpy() for v in (tp, top1, ent))
+    if original_at is None and original_img is not None:
+        # infer the endpoint by EXACT equality (allclose could misclassify
+        # an insertion pass on an image ~equal to its substrate)
+        if torch.equal(original_img, start):
+            original_at = "start"
+        elif torch.equal(original_img, finish):
+            original_at = "finish"
+    if original_at == "start":
+        original_pred = float(tp[0])
+        baseline_pred = float(tp[-1])
+        baseline_top1 = float(top1[-1])
+    elif original_at == "finish":
+        original_pred = float(tp[-1])
+        baseline_pred = float(tp[0])
+        baseline_top1 = float(top1[0])
+    elif original_img is not None:     # the original is neither endpoint
+        logits = apply_fn(original_img.permute(2, 0, 1)[None].contiguous())
+        original_pred = float(torch.softmax(logits[0], -1)[int(target)])
+        baseline_pred = float(tp[0])
+        baseline_top1 = float(top1[0])
+    else:
+        raise ValueError("pass original_at='start'/'finish' or original_img")
+    return CurveOutputs(tp, top1, ent, original_pred, baseline_pred,
+                        baseline_top1)
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,12 @@ class ModelBundle:
     def apply_taps(self, x: torch.Tensor):
         return self.module(x, taps=True)
 
+    def apply_tokens(self, x: torch.Tensor, token_indices: torch.Tensor):
+        """ViT only: logits with only CLS and the ``token_indices`` patch
+        tokens kept after the positional embedding (``[K]`` for the batch,
+        or ``[B, K]`` a row)."""
+        return self.module(x, token_indices=token_indices)
+
     def apply_probed(self, x: torch.Tensor, probes: dict):
         """(logits, taps) with ``probes[name]`` added to the tap ``name``:
         the gradient with respect to a zero probe is the gradient with

@@ -154,9 +154,11 @@ class VisionTransformer(nn.Module):
         probes (a ``[L, B, H, N, N]`` tensor, or a list whose entries may
         be None), "embed": [B, N, D]}`` added to each block's post-softmax
         attention and to the patch embedding.  ``token_indices``: optional
-        ``[K]`` patch-token indices (0-based, CLS excluded) to keep after
-        the positional embedding, the functional form of TIS's token
-        dropping; CLS is always kept."""
+        patch-token indices (0-based, CLS excluded) to keep after the
+        positional embedding, the functional form of TIS's token dropping:
+        ``[K]``, one set for the whole batch, or ``[B, K]``, one set a row
+        (xai_tpu vmaps its ``[K]`` form over the rows); CLS is always
+        kept."""
         b = x.shape[0]
         # NCHW conv, then [B, D, gh, gw] -> [B, gh*gw, D]: the row-major
         # token order of xai_tpu's NHWC reshape
@@ -167,7 +169,12 @@ class VisionTransformer(nn.Module):
             y = y + probes["embed"]
         patch_embedding = y
         if token_indices is not None:
-            y = torch.cat([y[:, :1], y[:, 1:][:, token_indices]], dim=1)
+            if token_indices.dim() == 1:
+                kept = y[:, 1:][:, token_indices]
+            else:
+                kept = torch.gather(y[:, 1:], 1, token_indices[..., None]
+                                    .expand(-1, -1, y.shape[-1]))
+            y = torch.cat([y[:, :1], kept], dim=1)
         tap_list = []
         attn_probes = probes.get("attn") if probes is not None else None
         for i, block in enumerate(self.blocks()):

@@ -2,11 +2,11 @@
 
 Counterpart of ``xai_tpu/registry.py`` and ``registry_vit.py``.  Each
 entry maps a context to a ``[H, W]`` numpy saliency.  This holds every
-CNN entry of xai_tpu's table and the 11 ViT names of
-``methods/batch.py VIT_PATCH_MAPS`` (each the batch of one); TIS, VIT_CX,
-MDA and MDA_dense raise naming ROADMAP.md item A10 slice 2, and the CLIP
-family item A11.  As in xai_tpu, the ViT entries run in float32 whatever
-the context's dtype: only the batched path casts a ViT.
+CNN and ViT entry of xai_tpu's tables; the CLIP family raises naming
+ROADMAP.md item A11.  As in xai_tpu, the 11 ViT names of
+``methods/batch.py VIT_PATCH_MAPS`` (each the batch of one) run in
+float32 whatever the context's dtype, while TIS, VIT_CX, MDA and
+MDA_dense take the context's dtype for their scoring forwards.
 """
 from __future__ import annotations
 
@@ -20,13 +20,14 @@ from .methods import ablation as AB
 from .methods import gradient as G
 from .methods import guided as GD
 from .methods.agi import agi
-from .methods.batch import (NOT_PORTED_ITEM, VIT_PATCH_MAPS, VIT_SLICE2,
-                            vit_saliency, vit_slice2_error)
+from .methods import vit_explain as VE
+from .methods.batch import NOT_PORTED_ITEM, VIT_PATCH_MAPS, vit_saliency
 from .methods.gig import guided_ig
 from .methods.gradient import to_saliency
 from .methods.lime import lime
 from .methods.rise import rise
 from .methods.xrai import xrai
+from .ops.blur import make_blur_fn
 from .ops.resize import resize_bilinear, resize_nearest_exact
 
 
@@ -133,14 +134,70 @@ def _vit_entry(name):
     return entry
 
 
-def _vit_slice2(name):
-    def entry(c):
-        raise vit_slice2_error(name)
-    return entry
+def _default_generator(ctx) -> torch.Generator:
+    """The context's generator, else seed 0 on the model's device (xai_tpu
+    falls back to ``PRNGKey(0)`` where its context has no key)."""
+    if ctx.generator is not None:
+        return ctx.generator
+    return torch.Generator(ctx.x.device).manual_seed(0)
+
+
+def _tis_entry(ctx):
+    from .methods.tis import tis
+    sal = tis(ctx.bundle, ctx.x, ctx.target,
+              generator=_default_generator(ctx), dtype=ctx.dtype)
+    return resize_bilinear(sal, (ctx.img_hw, ctx.img_hw)).abs().cpu().numpy()
+
+
+def _vit_cx_entry(ctx):
+    from .methods.vit_cx import vit_cx
+    # the driver broadcasts over 3 channels then abs-sums -> 3 * map
+    return 3.0 * np.abs(vit_cx(ctx.bundle, ctx.x, ctx.target,
+                               generator=_default_generator(ctx),
+                               dtype=ctx.dtype))
+
+
+def adaptive_blur(bundle, x: torch.Tensor, target: int):
+    """(blur_fn, klen) of MDA's adaptive blur (evaluatePerturbation.py:
+    243-257): grow klen from 31 by 4 until the blurred image's softmax at
+    the target is <= 1 % or klen > 101 (so at most 103)."""
+    xb = x.permute(2, 0, 1)[None].contiguous()
+    klen = 31
+    while True:
+        blur_fn = make_blur_fn(klen, float(klen))
+        with torch.no_grad():
+            probs = torch.softmax(bundle.apply(blur_fn(xb))[0], -1)
+        if float(probs[target]) * 100 <= 1 or klen > 101:
+            return blur_fn, klen
+        klen += 4
+
+
+def _mda_entry(ctx, dense: bool = False):
+    from .methods.mda import mda, mda_dense
+
+    blur_fn, _ = adaptive_blur(ctx.bundle, ctx.x, ctx.target)
+    prior = VE.bidirectional(ctx.bundle, ctx.x[None], [ctx.target])[0]
+    prior_up = resize_bilinear(prior, (ctx.img_hw, ctx.img_hw)).cpu().numpy()
+    prior3 = np.repeat(prior_up[..., None], 3, axis=-1)
+    patch_count = ctx.bundle.meta.num_patches ** 2
+    if dense:
+        # the seg driver's variant (evaluateImageNetSeg.py:291-326): the
+        # dense rank map, no 3x abs-sum (it is consumed minmax-normalized)
+        return mda_dense(ctx.bundle, ctx.trans_img, ctx.x, prior3,
+                         patch_count, blur_fn, target=ctx.target,
+                         dtype=ctx.dtype)
+    m = mda(ctx.bundle, ctx.trans_img, ctx.x, prior3, patch_count, blur_fn,
+            target=ctx.target, dtype=ctx.dtype)
+    return 3.0 * np.abs(m)
 
 
 VIT_METHODS: Dict[str, Callable] = {n: _vit_entry(n) for n in VIT_PATCH_MAPS}
-VIT_METHODS.update({n: _vit_slice2(n) for n in VIT_SLICE2})
+VIT_METHODS.update({
+    "TIS": _tis_entry,
+    "VIT_CX": _vit_cx_entry,
+    "MDA": _mda_entry,
+    "MDA_dense": lambda c: _mda_entry(c, dense=True),
+})
 FAMILY_METHODS = {"cnn": CNN_METHODS, "vit": VIT_METHODS}
 
 

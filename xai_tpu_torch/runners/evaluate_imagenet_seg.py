@@ -32,12 +32,15 @@ from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      resolve_device)
 
 
-class _SegTotals:
-    """The driver's accumulators: int64 pixel counts, per-image AP and
-    F1."""
+class SegTotals:
+    """The seg drivers' accumulators: int64 pixel counts, per-image AP and
+    F1.  ``best``: each image at its best-IoU threshold
+    (evaluateImageNetSeg.py:331-360); else at ``thr``, or at the map's
+    mean where ``thr`` is None."""
 
-    def __init__(self, attr_func: str):
-        self.attr_func = attr_func
+    def __init__(self, best: bool, thr=None):
+        self.best = best
+        self.thr = thr
         self.inter = np.zeros(2, np.int64)
         self.union = np.zeros(2, np.int64)
         self.correct = np.int64(0)
@@ -45,15 +48,13 @@ class _SegTotals:
         self.ap, self.f1 = [], []
 
     def add(self, sal, gt_mask) -> None:
-        if self.attr_func == "MDA_dense":
-            # per-image best-IoU threshold sweep (evaluateImageNetSeg.py:
-            # 331-360) instead of the mean threshold
+        if self.best:
             sal, thr = best_threshold(sal, gt_mask)
             correct, labeled, inter, union, ap, f1 = eval_batch(
                 sal, gt_mask, thr=thr, normalized=True)
         else:
-            correct, labeled, inter, union, ap, f1 = eval_batch(sal,
-                                                                gt_mask)
+            correct, labeled, inter, union, ap, f1 = eval_batch(
+                sal, gt_mask, thr=self.thr)
         self.correct += np.int64(correct)
         self.label += np.int64(labeled)
         self.inter += inter.astype(np.int64)
@@ -68,6 +69,17 @@ class _SegTotals:
                           .mean()),
             "mAP": float(np.mean(self.ap)) if self.ap else 0.0,
             "mF1": float(np.mean(self.f1)) if self.f1 else 0.0}
+
+    def write(self, path: str) -> dict:
+        """The driver's TXT at ``path``; returns the scores."""
+        scores = self.scores()
+        with open(path, "w") as fh:
+            fh.write("Mean IoU over %d classes: %.4f\n" % (2, scores["mIoU"]))
+            fh.write("Pixel-wise Accuracy: %2.2f%%\n"
+                     % (scores["pixAcc"] * 100))
+            fh.write("Mean AP over %d classes: %.4f\n" % (2, scores["mAP"]))
+            fh.write("Mean F1 over %d classes: %.4f\n" % (2, scores["mF1"]))
+        return scores
 
 
 def _flush(bundle, family, buf, totals, args) -> None:
@@ -89,7 +101,8 @@ def evaluate_imagenet_seg(args, device=None) -> dict:
 
     ds = ImagenetSegmentation(args.dataset_path, img_hw=bundle.meta.img_hw,
                               synthetic=args.synthetic)
-    totals = _SegTotals(args.attr_func)
+    # MDA_dense: the best-IoU threshold instead of the mean
+    totals = SegTotals(best=args.attr_func == "MDA_dense")
     buf = []
     for i, item in enumerate(ds):
         if args.image_count and i >= args.image_count:
@@ -115,16 +128,10 @@ def evaluate_imagenet_seg(args, device=None) -> dict:
     if buf:
         _flush(bundle, family, buf, totals, args)
 
-    scores = totals.scores()
     folder = os.path.join(args.output_dir, args.model)
     os.makedirs(folder, exist_ok=True)
-    fn = os.path.join(folder, f"{args.attr_func}_{args.image_count}_images")
-    with open(fn, "w") as fh:
-        fh.write("Mean IoU over %d classes: %.4f\n" % (2, scores["mIoU"]))
-        fh.write("Pixel-wise Accuracy: %2.2f%%\n" % (scores["pixAcc"] * 100))
-        fh.write("Mean AP over %d classes: %.4f\n" % (2, scores["mAP"]))
-        fh.write("Mean F1 over %d classes: %.4f\n" % (2, scores["mF1"]))
-    return scores
+    return totals.write(os.path.join(
+        folder, f"{args.attr_func}_{args.image_count}_images"))
 
 
 def build_parser():

@@ -16,7 +16,7 @@ construction; the parity tests inject the same draws into both packages.
 Per-image flow (reference :520-599): sorted val stream -> correctly-
 classified filter -> sanity gates (blur/black predictions) -> class-balance
 quota -> attribution via the registry (every CNN and ViT method of
-xai_tpu's table but TIS, VIT_CX and MDA) -> run_battery (3 reveal passes fed by the reveal kernel) ->
+xai_tpu's table) -> run_battery (3 reveal passes fed by the reveal kernel) ->
 accumulate -> CSV.  ``--image_batch N`` gathers N kept images and runs
 one batched attribution (``methods/batch.py``) and one batched battery
 (``parallel/sharded_battery.py``) for them; rise and xrai, which have no
@@ -24,8 +24,9 @@ batched form, attribute the batch's images one by one through the
 registry, and a partial last batch goes image by image with its stored
 targets.
 ``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
-model, on both paths for a CNN and on the batched path for a ViT (as in
-xai_tpu, whose per-image ViT entries take no dtype).  ``--save_maps`` writes every scored image's map to
+model, on both paths for a CNN and on the batched path for a ViT; image
+by image, only TIS, VIT_CX, MDA and MDA_dense among the ViT names take it
+(their scoring forwards), as in xai_tpu.  ``--save_maps`` writes every scored image's map to
 ``<output_dir>/<model>_<attr_func>_maps.h5`` (``data/voc.py
 ExplanationsHDF5``; it needs ``h5py``).
 
@@ -33,7 +34,8 @@ Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
 --attr_func ig --synthetic 2 --image_count 2`` (or any other CNN name:
 lime, gig, agi, gc, gbp, ggc, gs, fa, occ, shap, rise, xrai; or
 ``--model VIT16`` / ``VIT32`` with attn, grad, cam_attn, n_rollout,
-rollout, t_attn, attn_ig, attn_attr, bi_attn, InFlow, t_attr; add
+rollout, t_attn, attn_ig, attn_attr, bi_attn, InFlow, t_attr, TIS,
+VIT_CX, MDA, MDA_dense; add
 ``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations

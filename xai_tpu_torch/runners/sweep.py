@@ -6,8 +6,8 @@ Counterpart of ``xai_tpu/runners/sweep.py`` with the same tables, flags
 and ``sweep_manifest.jsonl``.  xai_tpu stripes the runs over its
 processes; the port runs as one process until ROADMAP.md item A14, and a
 multi-process run raises.  A run that fails (a CLIP row raises naming
-A11; a TIS, VIT_CX, MDA or MDA_dense row names A10 slice 2) is recorded
-with ``status: error`` and the sweep goes on, as in xai_tpu.
+A11) is recorded with ``status: error`` and the sweep goes on, as in
+xai_tpu.
 
 Tables mirror XAI_Survey/evaluations/allPertTests.txt (84 rows),
 allSanityTests.txt (72 rows) and allSegTests.txt (76 rows incl. duplicates;
