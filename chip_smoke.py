@@ -75,7 +75,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    raised, where the adaptive blur must pass klen 63; MDA_dense through
    the seg driver; imagenet_seg_eval with rollout and
    Calibrate_Best_Possible; the sweep's slice-2 rows on VIT32 (pert,
-   sanity, seg x the four names);
+   sanity, seg x the four names); then the CLIP family (ROADMAP A11) on
+   CLIP16 at 224 px with seeded random weights and its real 1000-prompt
+   table: each of its 12 names (eclip, eclip_nograd, eclip_wo, maskclip,
+   grad_cam, selfattn, game, rollout, lrp, m2ib, surgery, rise) image by
+   image on two images of two classes (random CLIP weights give nearly
+   every noise image one class: --synthetic k, k the first image of a
+   second class), the 11 batched ones at --image_batch 4 in float32,
+   eclip, game and m2ib in bf16, and on CLIP32 eclip image by image and
+   lrp at B=4 (each battery blur 1, reveal 15, quickshift 0); the sanity
+   driver (eclip, rollout at B=4 in bf16), the seg driver (eclip,
+   maskclip at B=4), the image finder, the 9-name CLIP panel (no name
+   fails) and the sweep's CLIP16 rows (pert, sanity, seg x eclip,
+   rollout);
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
@@ -102,7 +114,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    noise (labels equal, or a merge at the threshold), MDA (picks equal up
    to a first flipped pick that is a rounding-level tie), 3 epochs of
    refine_attribution within 1e-4, the classic metrics within 1e-5 and
-   PIC's areas (where PIL's WebP encoder imports) within 1e-5;
+   PIC's areas (where PIL's WebP encoder imports) within 1e-5; and on
+   xai_tpu's tiny test CLIP at 32 px every CLIP name single and at B=3
+   (m2ib with shared noise, rise with shared masks) within 1e-4 relative
+   in float32, and its driver-sized widths at 48 px with the real prompt
+   table: the randomized weights bit-equal, the rebuilt text table within
+   1e-5 and the sanity CSV (eclip, rollout, rollout at B=2) within 2e-3;
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
    attribution of R101, LIME split by stage with CUDA events; then R101 at
    B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
@@ -115,7 +132,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    peak memory, the battery image by image and at B=4, sanity-rollout
    and seg-rollout per image, and the image finder's images a second;
    and TIS, VIT_CX, MDA and MDA_dense image by image (TIS and VIT_CX in
-   bf16 too) and VIT_CX at B=4 in float32 and bf16, with peak memory.
+   bf16 too) and VIT_CX at B=4 in float32 and bf16, with peak memory;
+   then CLIP16: the text table's build, each CLIP name's s/image image by
+   image and the 11 batched at B=4 in float32 and bf16 with peak memory
+   and bf16's Spearman rho against float32 (> 0.95), the battery image by
+   image and at B=4, and CLIP32's battery.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -578,13 +599,14 @@ def synthetic_classes(torch, dev, n: int) -> list:
 
 
 def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
-                  batch, model="R101", want=None):
+                  batch, model="R101", want=None, min_scored=1):
     """Phase 4: the flagship driver on ``model``, counters zeroed just
     before and read just after.  A per-image path scores image by image
-    (the class quota may skip the second); a batched path must score all
-    its images in full batches.  ``want``: expected_launches()'s function,
-    for a path whose own choices set its launches (MDA's adaptive blur and
-    rescoring); the launches must then equal what it returns."""
+    (the class quota may skip the second), at least ``min_scored``
+    images; a batched path must score all its images in full batches.
+    ``want``: expected_launches()'s function, for a path whose own choices
+    set its launches (MDA's adaptive blur and rescoring); the launches
+    must then equal what it returns."""
     from xai_tpu_torch.runners import evaluate_perturbation as ep
 
     out_dir = os.path.join(out_dir, label)
@@ -609,7 +631,7 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     # --verbose prints one line per scored image ("[i/n] ..." image by
     # image, "[batch] ..." in a batch)
     scored = sum(line.startswith("[") for line in log.getvalue().splitlines())
-    if scored < 1 or (batch > 1 and scored != n_images):
+    if scored < min_scored or (batch > 1 and scored != n_images):
         fail(f"the {label} main path scored {scored} of {n_images} images")
 
     with open(os.path.join(out_dir, model,
@@ -2716,7 +2738,445 @@ def time_warm_vit(torch, dev, card):
           f"{peak / 2 ** 30:.2f} GiB, CUDA events) on {card}")
 
 
+# --- the CLIP family (ROADMAP A11) ---
+
+CLIP_NAMES = ("eclip", "eclip_nograd", "eclip_wo", "maskclip", "grad_cam",
+              "selfattn", "game", "rollout", "lrp", "m2ib", "surgery",
+              "rise")
+# the 11 that xai_tpu batches (CLIP_EXTRA_KIND): all but rise
+CLIP_BATCHED = CLIP_NAMES[:-1]
+CLIP_BF16 = ("eclip", "game", "m2ib")
+# xai_tpu's test CLIP (tests/test_batch_attr.py clip_setup), and its widths
+# with the real vocabulary and context for the drivers
+CLIP32PX = dict(patch=8, vision_width=32, vision_layers=2, vision_heads=4,
+                embed_dim=16, text_width=16, text_heads=2, text_layers=2,
+                vocab_size=50, context_length=12, img_hw=32)
+CLIP_TOKS = [[1, 5, 9, 49, 0, 0, 0, 0, 0, 0, 0, 0],
+             [3, 7, 49, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+             [2, 4, 6, 8, 49, 0, 0, 0, 0, 0, 0, 0]]
+
+
+def two_class_images(torch, dev, model: str, n: int = 128) -> tuple:
+    """(k, classes of the first n images): the first k images of the
+    --synthetic stream hold two of ``model``'s classes (seeded random
+    weights, as the drivers build them), so that --synthetic k
+    --image_count 2 scores two images of two classes.  Random CLIP
+    weights give nearly every noise image one class (CLIP16: image 74 is
+    the first of another)."""
+    classes = model_classes(torch, dev, model, n)
+    k = next((i + 1 for i, c in enumerate(classes) if c != classes[0]),
+             None)
+    if k is None:
+        fail(f"{model} gives the {n} synthetic images one class: no two "
+             f"images of two classes to score")
+    print(f"{model}: synthetic image {k} is the first of a second class")
+    return k, classes
+
+
+def clip_paths(k16: int, k32: int) -> list:
+    """Phase 4, the flagship driver on CLIP16 (and CLIP32): the 12 names
+    image by image on two images of two classes (the first ``k16``, ``k32``
+    synthetic images, two_class_images), the 11 batched names at
+    --image_batch 4 in float32, eclip, game and m2ib in bf16; on CLIP32
+    eclip image by image and lrp at B=4; (label, flags, images,
+    --image_count, --image_batch, model, images to score)."""
+    return ([(f"clip16_{n}", ["--attr_func", n], k16, 2, 1, "CLIP16", 2)
+             for n in CLIP_NAMES]
+            + [(f"clip16_{n}_b4", ["--attr_func", n], 4, 4000, 4, "CLIP16", 4)
+               for n in CLIP_BATCHED]
+            + [(f"clip16_{n}_b4_bf16", ["--attr_func", n, "--attr_dtype",
+                                        "bf16"], 4, 4000, 4, "CLIP16", 4)
+               for n in CLIP_BF16]
+            + [("clip32_eclip", ["--attr_func", "eclip"], k32, 2, 1,
+                "CLIP32", 2),
+               ("clip32_lrp_b4", ["--attr_func", "lrp"], 4, 4000, 4,
+                "CLIP32", 4)])
+
+
+def drive_clip_driver_paths(torch, dev, out_dir, classes, have) -> dict:
+    """Phase 4, the other drivers on CLIP16 at 224 px, each through its
+    entry point with its launches: sanity (eclip image by image, rollout
+    at B=4 in bf16; the randomized model's text table rebuilt; SPR and
+    HOG NaN only where a map is constant), segmentation (eclip, maskclip
+    at B=4), the image finder, the 9-name CLIP panel (no name fails; the
+    PNG where matplotlib imports) and the sweep's CLIP16 rows (pert,
+    sanity, seg x eclip, rollout); ``classes``: CLIP16's class of each
+    synthetic image.  Returns the launches by path."""
+    import numpy as np
+
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners import image_finder as fi
+    from xai_tpu_torch.runners import qualitative_generation as qg
+    from xai_tpu_torch.runners import sweep as sw
+
+    by_path = {}
+    for label, flags, n in (
+            ("clip16_sanity_eclip", ["--attr_func", "eclip", "--synthetic",
+                                     "2", "--image_count", "2"], 2),
+            ("clip16_sanity_rollout_b4_bf16",
+             ["--attr_func", "rollout", "--image_batch", "4",
+              "--synthetic", "4", "--image_count", "4", "--attr_dtype",
+              "bf16"], 4)):
+        d = os.path.join(out_dir, label)
+        args = es.build_parser().parse_args(
+            ["--model", "CLIP16", *flags, "--output_dir", d])
+        maps = []        # per call: [B, H, W], trained then randomized
+        get_attr = _spy(es, "get_attribution", maps, lambda m: m[None])
+        batch_attr = _spy(es, "batch_attribute", maps, lambda out: out[0])
+        try:
+            _, by_path[label] = run_path(
+                torch, label, lambda: es.evaluate_sanity(args, device=dev),
+                NO_LAUNCHES)
+        finally:
+            es.get_attribution, es.batch_attribute = get_attr, batch_attr
+        pairs = list(zip(np.concatenate(maps[0::2]),
+                         np.concatenate(maps[1::2])))
+        check_constant_maps(label, _read_sanity_csv(os.path.join(
+            d, "CLIP16", f"{args.attr_func}_{args.image_count}_images.csv")),
+            pairs, n)
+    for label, flags in (
+            ("clip16_seg_eclip", ["--attr_func", "eclip", "--synthetic",
+                                  "2"]),
+            ("clip16_seg_maskclip_b4", ["--attr_func", "maskclip",
+                                        "--image_batch", "4", "--synthetic",
+                                        "4"])):
+        d = os.path.join(out_dir, label)
+        args = eg.build_parser().parse_args(
+            ["--model", "CLIP16", *flags, "--output_dir", d])
+        _, by_path[label] = run_path(
+            torch, label, lambda: eg.evaluate_imagenet_seg(args, device=dev),
+            NO_LAUNCHES)
+        _finite_scores(label, _read_seg_txt(os.path.join(
+            d, "CLIP16", f"{args.attr_func}_0_images")), SEG_LINES)
+
+    gt = os.path.join(out_dir, "clip16_ground_truth.txt")
+    with open(gt, "w") as f:
+        f.writelines(f"{c if i % 2 == 0 else (c + 1) % 1000}\n"
+                     for i, c in enumerate(classes[:8]))
+    args = fi.build_parser().parse_args(
+        ["--model", "CLIP16", "--synthetic", "8", "--batch_size", "4",
+         "--ground_truth", gt, "--class_maps_dir",
+         os.path.join(out_dir, "class_maps")])
+    mask, by_path["clip16_image_finder"] = run_path(
+        torch, "clip16_image_finder",
+        lambda: fi.find_correctly_classified(args, device=dev), NO_LAUNCHES)
+    if mask.tolist() != [1, 0] * 4:
+        fail(f"CLIP16 image_finder mask {mask.tolist()}")
+    print(f"clip16_image_finder: mask {mask.tolist()} as constructed")
+
+    panels = []
+    panel_maps = _spy(qg, "panel_maps", panels)
+    try:
+        if have["matplotlib"]:
+            args = qg.build_parser().parse_args(
+                ["--model", "CLIP16", "--synthetic", "1", "--output_dir",
+                 os.path.join(out_dir, "clip_qualitative")])
+            written, by_path["clip16_qualitative"] = run_path(
+                torch, "clip16_qualitative",
+                lambda: qg.generate(args, device=dev), NO_LAUNCHES)
+            if list(written.values()) != [[]]:
+                fail(f"CLIP qualitative grid: {written}")
+        else:
+            from xai_tpu_torch.data.imagenet import ImageNetValStream
+            from xai_tpu_torch.runners.common import build_bundle
+
+            bundle = build_bundle("CLIP16", device=dev)
+            item = next(iter(ImageNetValStream("", 224, synthetic=1)))
+            _, by_path["clip16_qualitative"] = run_path(
+                torch, "clip16_qualitative", lambda: qg.panel_maps(
+                    bundle, item, qg.CLIP_PANEL, 0, dev), NO_LAUNCHES)
+    finally:
+        qg.panel_maps = panel_maps
+    maps, failed = panels[0]
+    if (failed or sorted(maps) != sorted(qg.CLIP_PANEL)
+            or not all(np.isfinite(m).all() and m.shape == (224, 224)
+                       for m in maps.values())):
+        fail(f"CLIP qualitative panel: failed {failed}, maps {sorted(maps)}")
+    print(f"clip16_qualitative: all {len(maps)} CLIP panel maps finite, "
+          f"none failed")
+
+    d = os.path.join(out_dir, "clip_sweep")
+    args = sw.build_parser().parse_args(
+        ["--drivers", "pert,sanity,seg", "--models", "CLIP16", "--methods",
+         "eclip,rollout", "--synthetic", "2", "--image_count", "2",
+         "--output_dir", d])
+    scored = 2 * len(set(classes[:2]))
+    sanity_maps = []
+    get_attr = _spy(es, "get_attribution", sanity_maps)
+    try:
+        records, by_path["clip16_sweep"] = run_path(
+            torch, "clip16_sweep", lambda: sw.run_sweep(args, device=dev),
+            dict(NO_LAUNCHES, blur_planes=scored,
+                 reveal_batch=REVEAL_PER_BATTERY * scored))
+    finally:
+        es.get_attribution = get_attr
+    with open(os.path.join(d, "sweep_manifest.jsonl")) as f:
+        manifest = [json.loads(line) for line in f]
+    if len(manifest) != 6 or records != manifest or not all(
+            r["status"] == "ok" for r in manifest):
+        fail(f"CLIP sweep manifest: {manifest}")
+    for r in manifest:
+        if r["driver"] == "sanity":
+            m, sanity_maps[:4] = sanity_maps[:4], []
+            check_constant_maps(f"clip16_sweep sanity/{r['attr_func']}",
+                                r["scores"], list(zip(m[0::2], m[1::2])), 2)
+        else:
+            _finite_scores(f"clip16_sweep {r['driver']}/{r['attr_func']}",
+                           r["scores"], list(r["scores"]))
+    print("clip16_sweep: 6 manifest rows, all ok: " + ", ".join(
+        f"{r['driver']}/{r['attr_func']} {r['seconds']} s" for r in manifest))
+    return by_path
+
+
+def tiny_clip(torch, device, img_hw: int = 32):
+    """xai_tpu's test CLIP (CLIP32PX) at ``img_hw``, flax-scheme random
+    weights of seed 0 and the 10-row text table of a seeded draw, with the
+    token rows CLIP_TOKS, on ``device``."""
+    from xai_tpu_torch.models import clip as tclip
+    from xai_tpu_torch.models.common import ModelMeta
+    from xai_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+
+    cfg = tclip.CLIPConfig(**dict(CLIP32PX, img_hw=img_hw))
+    module = tclip.init_random(tclip.CLIP(cfg), seed=0).to(device)
+    te = torch.randn(10, cfg.embed_dim,
+                     generator=torch.Generator().manual_seed(3))
+    te = (te / te.norm(dim=-1, keepdim=True)).to(device)
+    meta = ModelMeta(name="smallclip", family="clip", img_hw=img_hw,
+                     num_classes=10, num_patches=cfg.grid, batch_size=8,
+                     mean=CLIP_MEAN, std=CLIP_STD)
+    return tclip.CLIPBundle(meta, module, te)
+
+
+def check_clip_reference(torch, dev):
+    """Phase 5, the CLIP family: xai_tpu's tiny test CLIP at 32 px on the
+    card against the same code on the CPU, in float32: the 10 names that
+    draw nothing single (registry) and the 10 of them that batch at B=3
+    (batch_attribution), m2ib at B=3 on shared noise, rise on shared
+    masks, each within 1e-4 of the CPU's largest value; then the
+    randomized tiny CLIP (its driver-sized widths, the real prompt table,
+    48 px so that HOG has a block) through the sanity driver, the
+    randomized weights bit-equal, the sanity CSV (eclip, rollout; rollout
+    also at --image_batch 2) within 2e-3 of the CPU's."""
+    import numpy as np
+
+    from xai_tpu_torch.methods import clip_m2ib as TI
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.methods.rise import rise
+    from xai_tpu_torch.models import clip as tclip
+    from xai_tpu_torch.registry import AttrContext, get_attribution
+
+    cpu = torch.device("cpu")
+    imgs = np.random.RandomState(4).randn(3, 32, 32, 3).astype(np.float32)
+    targets = [0, 5, 9]
+    draw_free = [n for n in CLIP_BATCHED if n != "m2ib"]
+    cfg = tclip.CLIPConfig(**CLIP32PX)
+    noises = torch.randn((3, 10, 10, cfg.tokens, cfg.vision_width),
+                         generator=torch.Generator().manual_seed(5))
+    masks = torch.rand((40, 32, 32),
+                       generator=torch.Generator().manual_seed(6))
+    runs = {}
+    for name, d in (("cuda", dev), ("cpu", cpu)):
+        bundle = tiny_clip(torch, d)
+        xs = torch.as_tensor(imgs, device=d)
+        ex = {"txt_emb": bundle.text_embeddings[targets],
+              "text_tokens": torch.tensor(CLIP_TOKS, device=d)}
+        out = {}
+        for m in draw_free:
+            out[m, "single"] = np.stack([get_attribution(
+                "clip", m, AttrContext(
+                    bundle=bundle, x=x, trans_img=im, target=t, img_hw=32,
+                    extras={k: v[i:i + 1] for k, v in ex.items()}))
+                for i, (x, im, t) in enumerate(zip(xs, imgs, targets))])
+            out[m, "b3"] = batch_attribution("clip", m, bundle, imgs, imgs,
+                                             targets, None, img_hw=32,
+                                             extras=ex)
+        out["m2ib", "b3"] = TI.vision_heatmap_iba(
+            bundle, xs, ex["txt_emb"], noises=noises).cpu().numpy()
+        out["rise", "single"] = rise(bundle, xs[0], 5,
+                                     masks=masks.to(d)).cpu().numpy()
+        runs[name] = out
+    worst = {}
+    for key, want in runs["cpu"].items():
+        got = runs["cuda"][key]
+        err = float(np.abs(got - want).max()) / (float(np.abs(want).max())
+                                                 or 1.0)
+        worst[key] = err
+        if not (np.isfinite(got).all() and err < 1e-4):
+            fail(f"tiny CLIP {key} on the card differs from the CPU: {err}")
+    print("tiny CLIP 32 px, card vs CPU, max |delta| / CPU max (< 1e-4): "
+          + ", ".join(f"{m} {worst[m, 'single']:.3g} / B=3 "
+                      f"{worst[m, 'b3']:.3g}" for m in draw_free)
+          + f", m2ib B=3 {worst['m2ib', 'b3']:.3g}, rise "
+          f"{worst['rise', 'single']:.3g}")
+    check_tiny_clip_sanity(torch, dev)
+
+
+@contextlib.contextmanager
+def tiny_clip_model(img_hw: int):
+    """--model CLIP16 as the test CLIP's widths with the real vocabulary
+    and context at ``img_hw`` (the constructor's config replaced for the
+    duration, as the CPU tests do)."""
+    from xai_tpu_torch.models import clip as tclip
+
+    key = "clip_vit_b16"
+    old = tclip.CONFIGS[key]
+    tclip.CONFIGS[key] = tclip.CLIPConfig(**dict(
+        CLIP32PX, vocab_size=49408, context_length=77, img_hw=img_hw))
+    try:
+        yield
+    finally:
+        tclip.CONFIGS[key] = old
+
+
+def check_tiny_clip_sanity(torch, dev):
+    """Phase 5, the CLIP sanity driver card vs CPU: --model CLIP16 as the
+    test CLIP's widths at 48 px, its randomized weights bit-equal and its
+    rebuilt text table within 1e-5, the CSV of eclip and rollout (rollout
+    also at --image_batch 2) within 2e-3."""
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners.common import build_bundle
+
+    cpu = torch.device("cpu")
+    report = []
+    with tiny_clip_model(48), tempfile.TemporaryDirectory() as out_dir:
+        rand = [es.randomize_family(build_bundle("CLIP16", device=d), "clip",
+                                    torch.Generator().manual_seed(1))
+                for d in (dev, cpu)]
+        weights = [{k: v.cpu() for k, v in r.module.state_dict().items()}
+                   for r in rand]
+        if not all(torch.equal(weights[0][k], weights[1][k])
+                   for k in weights[1]):
+            fail("the sanity driver's randomized CLIP differs card vs CPU")
+        te = float((rand[0].text_embeddings.cpu()
+                    - rand[1].text_embeddings).abs().max())
+        if not te < 1e-5:
+            fail(f"the randomized CLIP's text table differs card vs CPU: "
+                 f"{te}")
+        for name, batch in (("eclip", 1), ("rollout", 1), ("rollout", 2)):
+            flags = ["--model", "CLIP16", "--attr_func", name, "--synthetic",
+                     "3", "--image_count", "3", "--image_batch", str(batch),
+                     "--output_dir", out_dir]
+            got, want = (es.evaluate_sanity(es.build_parser().parse_args(
+                flags), device=d) for d in (dev, cpu))
+            same_nan = all(math.isnan(got[k]) == math.isnan(want[k])
+                           for k in want)
+            worst = max((abs(got[k] - want[k]) for k in want
+                         if not math.isnan(want[k])), default=0.0)
+            report.append(f"{name} B={batch} {worst:.3g} "
+                          f"({json.dumps(want)})")
+            if not (same_nan and worst < 2e-3):
+                fail(f"tiny CLIP sanity {name} B={batch} on the card "
+                     f"differs from the CPU: {got} vs {want}")
+    print("tiny CLIP (48 px, real prompt table), randomized: weights "
+          f"bit-equal card vs CPU, text table within {te:.3g}; sanity CSV "
+          "max |score delta| (< 2e-3): " + ", ".join(report))
+
+
+def time_warm_clip(torch, dev, card):
+    """Phase 6, the CLIP family on CLIP16, warm, with CUDA events: the
+    text table's build; each name's s/image image by image (the registry)
+    and, for the 11 batched, at B=4 in float32 and bf16
+    (batch_attribution), with peak memory and bf16's Spearman rho against
+    float32 per image (> 0.95); the battery image by image and at B=4;
+    CLIP32's battery image by image."""
+    import numpy as np
+
+    from xai_tpu_torch.methods.batch import batch_attribution
+    from xai_tpu_torch.metrics.curves import run_battery
+    from xai_tpu_torch.models import clip as tclip
+    from xai_tpu_torch.ops.stats import spearman_np
+    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
+    from xai_tpu_torch.registry import get_attribution
+    from xai_tpu_torch.runners.common import (attr_context, build_bundle,
+                                              default_blur, image_generator,
+                                              normalize_input,
+                                              predict_classes)
+
+    bundle = build_bundle("CLIP16", device=dev)
+    for _ in range(2):                      # the first round warms up
+        t0 = time.perf_counter()
+        tokens = tclip.class_prompt_tokens()
+        t_tok = time.perf_counter() - t0
+        _, t_table = _event_s(torch, lambda: tclip.attach_text_table(
+            bundle, tokens))
+    print(f"CLIP16 warm text table: {t_table:.4f} s on the card (1000 "
+          f"prompts x 77 tokens, 8 chunks of 125, CUDA events) + "
+          f"{t_tok:.4f} s tokenizing on the host (cached BPE) on {card}")
+
+    imgs = np.random.RandomState(0).rand(4, 224, 224, 3).astype(np.float32)
+    xs = torch.stack([normalize_input(im, "clip", dev) for im in imgs])
+    targets = predict_classes(bundle, xs)
+    ex = tclip.batch_extras(bundle, targets)
+    out, rho = {}, {}
+    for name in CLIP_NAMES:
+        p = {"x": xs[0], "trans_img": imgs[0], "target": targets[0],
+             "generator": image_generator(0, 0, dev)}
+        calls = [("image", lambda: get_attribution(
+            "clip", name, attr_context(bundle, p))[None], 1)]
+        if name in CLIP_BATCHED:
+            for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+                calls.append((f"b4 {dname}", lambda dtype=dtype: (
+                    batch_attribution(
+                        "clip", name, bundle, xs, imgs, targets,
+                        [image_generator(0, i, dev) for i in range(4)],
+                        dtype=dtype, extras=ex)), 4))
+        maps = {}
+        for kind, fn, b in calls:
+            fn()                                     # warm
+            torch.cuda.reset_peak_memory_stats(dev)
+            maps[kind], sec = _event_s(torch, fn)
+            if not np.isfinite(maps[kind]).all():
+                fail(f"warm CLIP16 {name} {kind}: non-finite saliency")
+            out[name, kind] = (sec / b,
+                               torch.cuda.max_memory_allocated(dev))
+        if name in CLIP_BATCHED:
+            rho[name] = [spearman_np(a, b) for a, b in
+                         zip(maps["b4 f32"], maps["b4 bf16"])]
+    for (name, kind), (sec, peak) in out.items():
+        print(f"CLIP16 warm {name} {kind}: {sec:.4f} s/image (peak memory "
+              f"{peak / 2 ** 30:.2f} GiB)")
+    print("CLIP16 warm, s/image (CUDA events), image by image / B=4 f32 / "
+          "B=4 bf16: " + ", ".join(
+              f"{n} {out[n, 'image'][0]:.4f}" + (
+                  f" / {out[n, 'b4 f32'][0]:.4f} / {out[n, 'b4 bf16'][0]:.4f}"
+                  if n in CLIP_BATCHED else "") for n in CLIP_NAMES)
+          + f" on {card}")
+    print("CLIP16 bf16 against float32 at B=4, Spearman rho per image: "
+          + ", ".join(f"{n} {min(r):.4f}" for n, r in rho.items()))
+    low = {n: r for n, r in rho.items() if not min(r) > 0.95}
+    if low:
+        fail(f"CLIP16 bf16 maps rank unlike float32 (rho <= 0.95): {low}")
+
+    sal1 = get_attribution("clip", "eclip", attr_context(bundle, {
+        "x": xs[0], "trans_img": imgs[0], "target": targets[0],
+        "generator": None}))
+    sals = batch_attribution("clip", "eclip", bundle, xs, imgs, targets,
+                             None, extras=ex)
+    blur = default_blur()
+    for _ in range(2):                       # the first round warms up
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t1 = _event_s(torch, lambda: run_battery(
+            bundle.apply, xs[0], sal1, blur, chunk=45, target=targets[0]))
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t4 = _event_s(torch, lambda: sharded_battery_scores(
+            bundle, xs, sals, blur, 45, targets))
+        peak4 = torch.cuda.max_memory_allocated(dev)
+    b32 = build_bundle("CLIP32", device=dev)
+    x32 = normalize_input(imgs[0], "clip", dev)
+    t32 = predict_classes(b32, x32[None])[0]
+    for _ in range(2):
+        _, t1_32 = _event_s(torch, lambda: run_battery(
+            b32.apply, x32, sal1, blur, chunk=45, target=t32))
+    print(f"CLIP16 warm battery: {t1:.4f} s/image image by image (peak "
+          f"{peak1 / 2 ** 30:.2f} GiB), {t4 / 4:.4f} s/image at B=4 (peak "
+          f"{peak4 / 2 ** 30:.2f} GiB); CLIP32 {t1_32:.4f} s/image image by "
+          f"image; 675 forwards each on {card}")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -2770,6 +3230,13 @@ def main() -> None:
             torch, dev, out_dir, "vit16_MDA_confident",
             ["--attr_func", "MDA"], 1, 1, 1, "VIT16", confident=True)
         by_path.update(drive_slice2_driver_paths(torch, dev, out_dir))
+        k16, clip_classes = two_class_images(torch, dev, "CLIP16")
+        k32, _ = two_class_images(torch, dev, "CLIP32")
+        for label, *path, scored in clip_paths(k16, k32):
+            by_path[label] = run_main_path(torch, dev, out_dir, label, *path,
+                                           min_scored=scored)
+        by_path.update(drive_clip_driver_paths(torch, dev, out_dir,
+                                               clip_classes, have))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)
@@ -2777,6 +3244,7 @@ def main() -> None:
     check_vit_reference(torch, dev)
     check_tiny_vit_drivers(torch, dev)
     check_slice2_reference(torch, dev, have)
+    check_clip_reference(torch, dev)
     bundle, per_image = time_warm_image(torch, dev, card)
     time_warm_batch(torch, dev, card, bundle, per_image)
     time_warm_a8(torch, dev, card, bundle)
@@ -2784,6 +3252,7 @@ def main() -> None:
     del bundle
     time_warm_vit(torch, dev, card)
     time_warm_slice2(torch, dev, card)
+    time_warm_clip(torch, dev, card)
 
     for row in rows:
         name = row["name"]
@@ -2794,6 +3263,8 @@ def main() -> None:
         print(f"{name}: kernel {row['ms'] * 1e3:.2f} us, plain "
               f"{row['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}) on {card}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
+          f"to the result lines")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

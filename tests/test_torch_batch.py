@@ -225,17 +225,33 @@ def test_a8_float64_copy_keeps_float64_scores(twins32, name, monkeypatch):
 @pytest.mark.parametrize("family,name,item", [
     ("vit", "VIT_CX", None), ("clip", "eclip", "A11")])
 def test_unported_batch_names_raise(twins, tmp_path, family, name, item):
-    """The CLIP family raises naming A11.  VIT_CX, which raised naming
-    A10 slice 2, now runs batched: on xai_tpu's 32 px test ViT its batch
-    with injected noise matches xai_tpu's vit_cx image by image (3|map|,
-    as the entries give it)."""
-    _, tb, xs, targets, _ = twins
+    """No batched name raises any more.  eclip, which raised naming A11,
+    now runs batched: on xai_tpu's tiny test CLIP its batch equals its
+    per-image registry entries (the full CLIP cases:
+    tests/test_torch_clip_methods.py).  VIT_CX, which raised naming A10
+    slice 2, runs batched: on xai_tpu's 32 px test ViT its batch with
+    injected noise matches xai_tpu's vit_cx image by image (3|map|, as
+    the entries give it).  ``item``: the ROADMAP.md item that ported the
+    name."""
     assert TB.has_batch_impl(family, name)
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md item {item}"):
-            TB.batch_attribution(family, name, tb, xs, xs, targets,
-                                 _generators(), img_hw=HW)
+    if family == "clip":
+        from test_torch_clip import clip_twins
+        from xai_tpu_torch.models.clip import batch_extras
+
+        _, cb = clip_twins(str(tmp_path / "clip.npz"))
+        imgs = np.random.RandomState(2).randn(2, 32, 32, 3).astype(
+            np.float32)
+        got = TB.batch_attribution(family, name, cb, imgs, imgs, [3, 0],
+                                   None, img_hw=32,
+                                   extras=batch_extras(cb, [3, 0]))
+        assert got.shape == (2, 32, 32) and np.isfinite(got).all()
+        for i, t in enumerate([3, 0]):
+            want = get_attribution(family, name, AttrContext(
+                bundle=cb, x=torch.from_numpy(imgs[i]), trans_img=imgs[i],
+                target=t, img_hw=32, extras={
+                    k: v[i:i + 1]
+                    for k, v in batch_extras(cb, [3, 0]).items()}))
+            assert np.abs(got[i] - want).max() <= 1e-6 * np.abs(want).max()
         return
     import jax.numpy as jnp
     from xai_tpu.methods import vit_cx as JX

@@ -264,12 +264,22 @@ def test_unported_flags_raise(tmp_path, params_path, flag):
     assert not os.listdir(tmp_path)
 
 
-def test_unported_model_and_method_raise(tmp_path):
+def test_unported_model_and_method_raise(tmp_path, monkeypatch):
+    """CLIP16, which raised naming A11, now runs (on the driver-sized
+    tiny CLIP: tests/test_torch_clip_drivers.py holds its scores); an
+    unknown method still raises."""
+    from test_torch_clip import CLIP_DRIVER
+    from xai_tpu_torch.models import clip as tclip
+
+    monkeypatch.setitem(tclip.CONFIGS, "clip_vit_b16",
+                        tclip.CLIPConfig(**CLIP_DRIVER))
     base = ["--synthetic", "1", "--image_count", "1", "--output_dir",
             str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A11"):
-        TD.evaluate_perturbation(TD.build_parser().parse_args(
-            ["--model", "CLIP16", *base]), device="cpu")
+    scores = TD.evaluate_perturbation(TD.build_parser().parse_args(
+        ["--model", "CLIP16", "--attr_func", "eclip", *base]), device="cpu")
+    assert len(scores) == 10 and all(np.isfinite(v) for v in
+                                     scores.values())
+    assert (tmp_path / "CLIP16" / "eclip_1_images.csv").exists()
     with pytest.raises(KeyError, match="unknown cnn attribution 'nope'"):
         TD.evaluate_perturbation(TD.build_parser().parse_args(
             ["--model", "TINY_R", "--attr_func", "nope", *base]),

@@ -33,7 +33,9 @@ for m in ("runners.evaluate_perturbation", "ops.resize", "methods.guided",
           "runners.image_finder", "runners.qualitative_generation",
           "runners.sweep", "utils.visualization", "utils.render",
           "utils.saver", "models.vit", "methods.vit_explain",
-          "methods.vit_lrp"):
+          "methods.vit_lrp", "models.clip", "data.tokenizer",
+          "methods.clip_explain", "methods.clip_surgery",
+          "methods.clip_m2ib"):
     assert "xai_tpu_torch." + m in names, (m, names)
 # the native segmenter compiles the port's own copy of its source
 import xai_tpu_torch.native as native
@@ -59,6 +61,31 @@ print("ok")
 """
 
 
+# every file the CLIP path opens while it tokenizes the 1000 prompts and
+# reads the class names: the port's own copies, nothing of xai_tpu/
+_OWN_DATA = r"""
+import os, sys
+opened = []
+sys.addaudithook(lambda event, args: event == "open" and isinstance(
+    args[0], str) and opened.append(os.path.abspath(args[0])))
+from xai_tpu_torch.data import tokenizer
+from xai_tpu_torch.models.clip import class_prompt_tokens
+ids = class_prompt_tokens()
+names = tokenizer.imagenet_class_names()
+assert ids.shape == (1000, 77) and len(names) == 1000
+data = [p for p in opened if p.startswith(os.getcwd() + os.sep)
+        and p.endswith((".txt", ".gz"))]
+here = os.path.join(os.getcwd(), "xai_tpu_torch", "data")
+assert sorted(set(data)) == sorted(
+    os.path.join(here, f) for f in ("bpe_simple_vocab_16e6.txt.gz",
+                                    "imagenet_classes.txt")), data
+bad = [p for p in opened
+       if os.path.join(os.getcwd(), "xai_tpu") + os.sep in p]
+assert not bad, bad
+print("ok")
+"""
+
+
 def _run(args, cwd, timeout=120):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
@@ -69,6 +96,14 @@ def test_port_imports_no_jax_and_no_xai_tpu():
     r = _run(["-c", _IMPORT_ALL], REPO)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 51        # every module was imported
+
+
+def test_port_reads_its_own_data_files():
+    """The tokenizer and the class names come from the port's copies
+    under xai_tpu_torch/data/; no file under xai_tpu/ is opened."""
+    r = _run(["-c", _OWN_DATA], REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_port_imports_without_sklearn_h5py_matplotlib():

@@ -24,7 +24,7 @@ from xai_tpu.runners.common import save_params
 
 from xai_tpu_torch.convert.from_jax import load_params, state_dict_from_jax
 from xai_tpu_torch.metrics import sanity as TS
-from xai_tpu_torch.models.common import ModelBundle
+from xai_tpu_torch.models.common import ModelBundle, ModelMeta
 from xai_tpu_torch.runners import common as TC
 from xai_tpu_torch.runners import evaluate_sanity as TD
 
@@ -163,8 +163,23 @@ def test_randomize_family_is_deterministic_in_the_seed():
     a, b, c = draw(3), draw(3), draw(4)
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert not torch.equal(a["conv1.weight"], c["conv1.weight"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        TD.randomize_family(bundle, "clip", torch.Generator())
+    # the CLIP family's randomization (it raised naming A11) is too; its
+    # rule by name: tests/test_torch_clip.py
+    from test_torch_clip import CLIP_TINY
+    from xai_tpu_torch.models import clip as tclip
+
+    module = tclip.init_random(tclip.CLIP(tclip.CLIPConfig(**CLIP_TINY)))
+    clip = tclip.attach_text_table(tclip.CLIPBundle(
+        ModelMeta(name="c", family="clip", img_hw=32), module,
+        torch.zeros(1, 16)), tokens=[[1, 5, 49, 0]])
+    ca, cb, cc = (TD.randomize_family(clip, "clip", torch.Generator()
+                                      .manual_seed(s)) for s in (3, 3, 4))
+    assert all(torch.equal(x, y) for x, y in zip(
+        ca.module.state_dict().values(), cb.module.state_dict().values()))
+    assert torch.equal(ca.text_embeddings, cb.text_embeddings)
+    key = "visual.block0.attn.in_proj.weight"
+    assert not torch.equal(ca.module.state_dict()[key],
+                           cc.module.state_dict()[key])
 
 
 def _injected(path):

@@ -145,7 +145,7 @@ def test_image_finder_zoo_is_xai_tpus_beyond_the_drivers():
 
 @pytest.mark.parametrize("model,item", [("VGG16", "A13"),
                                         ("swin_tiny", "A13"),
-                                        ("VIT8", "A13"), ("CLIP32", "A11")])
+                                        ("VIT8", "A13"), ("CONVNXT", "A13")])
 def test_image_finder_unported_models_raise(tmp_path, model, item):
     args = TF.build_parser().parse_args(
         ["--model", model, "--synthetic", "1", "--class_maps_dir",
@@ -248,25 +248,43 @@ def _records(path):
         return [json.loads(line) for line in f]
 
 
-def test_sweep_resumes_and_records_unported_rows(tmp_path):
-    """Every run writes a manifest line; a second sweep skips the ok runs
-    and retries the failed ones; a CLIP row records its A11 error (the
-    ViT rows run: tests/test_torch_vit_drivers.py)."""
-    argv = ["--drivers", "pert,sanity,seg", "--models", "TINY_R,CLIP16",
-            "--methods", "grad", "--synthetic", "1", "--image_count", "1",
-            "--output_dir", str(tmp_path)]
+def test_sweep_resumes_and_records_unported_rows(tmp_path, monkeypatch):
+    """Every run writes a manifest line; a run that raises is recorded
+    with its error and the sweep goes on; a second sweep skips the ok
+    runs and retries the failed one.  The failing row is injected: the
+    seg driver raises for ig in the first sweep (the CLIP rows, which
+    raised naming A11 here before, run: tests/test_torch_clip_drivers.py)."""
+    argv = ["--drivers", "pert,sanity,seg", "--models", "TINY_R",
+            "--methods", "grad,ig", "--synthetic", "1", "--image_count",
+            "1", "--output_dir", str(tmp_path)]
+    real_entry = TW._driver_entry
+
+    def failing_seg(driver):
+        parser, evaluate = real_entry(driver)
+        if driver != "seg":
+            return parser, evaluate
+
+        def evaluate_or_fail(args, device=None):
+            if args.attr_func == "ig":
+                raise RuntimeError("injected seg failure")
+            return evaluate(args, device=device)
+        return parser, evaluate_or_fail
+
+    monkeypatch.setattr(TW, "_driver_entry", failing_seg)
     first = TW.run_sweep(TW.build_parser().parse_args(argv), device="cpu")
-    assert [(r["driver"], r["model"], r["status"]) for r in first] == [
-        (d, m, "ok" if m == "TINY_R" else "error")
-        for d in ("pert", "sanity", "seg") for m in ("TINY_R", "CLIP16")]
+    assert [(r["driver"], r["attr_func"], r["status"]) for r in first] == [
+        (d, m, "error" if (d, m) == ("seg", "ig") else "ok")
+        for d in ("pert", "sanity", "seg") for m in ("grad", "ig")]
     for r in first:
         if r["status"] == "error":
-            assert "A11" in r["error"]
+            assert "injected seg failure" in r["error"]
         else:
             assert all(np.isfinite(v) for v in r["scores"].values())
+    monkeypatch.setattr(TW, "_driver_entry", real_entry)
     second = TW.run_sweep(TW.build_parser().parse_args(argv), device="cpu")
-    assert [r["model"] for r in second] == ["CLIP16"] * 3
-    assert len(_records(tmp_path / "sweep_manifest.jsonl")) == 9
+    assert [(r["driver"], r["attr_func"], r["status"]) for r in second] == [
+        ("seg", "ig", "ok")]
+    assert len(_records(tmp_path / "sweep_manifest.jsonl")) == 7
 
 
 def test_sweep_refuses_many_processes(tmp_path, monkeypatch):

@@ -357,12 +357,13 @@ def test_sweep_runs_vit_rows(tmp_path, monkeypatch, tis_vit):
 
 @pytest.mark.parametrize("model", ["VIT16", "VIT32", "TINY_VIT"])
 def test_vit_models_are_ported(model):
-    """No driver's model lookup raises for a ViT any more; CLIP still
-    names A11."""
+    """No driver's model lookup raises for a ViT, nor, since A11, for a
+    CLIP: every model of xai_tpu's drivers' table is in the port's."""
     assert TC.model_entry(model)[0] == "vit"
-    assert model not in TC.NOT_PORTED
-    with pytest.raises(NotImplementedError, match="A11"):
-        TC.model_entry("CLIP16")
+    assert TC.model_entry("CLIP16") == ("clip", 25)
+    assert TC.model_entry("CLIP32") == ("clip", 50)
+    from xai_tpu.runners.common import MODEL_TABLE
+    assert TC.MODEL_TABLE == MODEL_TABLE
 
 
 def test_vit_entry_points_raise_without_cuda(tmp_path):

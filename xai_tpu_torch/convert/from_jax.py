@@ -48,6 +48,15 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray]
     return out
 
 
+def jax_leaf_name(name: str) -> str:
+    """The flat ``a/b/c`` key of the JAX leaf that the port's parameter
+    ``name`` carries (the inverse of :func:`state_dict_from_jax`'s
+    renaming; a conv or dense ``weight`` is a ``kernel`` there)."""
+    name = re.sub(r"^layer(\d+)\.(\d+)\.", r"layer\1_\2.", name)
+    *path, leaf = name.split(".")
+    return "/".join(path + ["kernel" if leaf == "weight" else leaf])
+
+
 def load_params(path: str) -> Dict[str, torch.Tensor]:
     """Read an ``xai_tpu``-saved ``.npz`` into the port's state dict."""
     if not path.endswith(".npz"):

@@ -1,6 +1,6 @@
 """Batched multi-image attribution: the production ``--image_batch`` path.
 
-Counterpart of ``xai_tpu/methods/batch.py``, CNN and ViT families.  The
+Counterpart of ``xai_tpu/methods/batch.py``, every family.  The
 IG family (ig, lig, idg, idgi, sg) folds the image axis into the chunked
 interpolation sweep of ``methods/gradient.py``: one flat sweep over
 ``B*steps`` (``B*samples*steps`` for sg) images with one target per row,
@@ -13,7 +13,11 @@ takes them; gig and agi run their batched loops; lime goes through
 The 11 ViT names run their explainers (``methods/vit_explain.py``,
 ``methods/vit_lrp.py``) on the batch, every per-image reduction per
 image; VIT_CX runs ``vit_cx_batch`` with each image's generator; TIS,
-MDA and MDA_dense, which xai_tpu runs image by image, return None.
+MDA and MDA_dense, which xai_tpu runs image by image, return None.  The
+11 batched CLIP names (``CLIP_EXTRA_KIND``) run their explainers
+(``methods/clip_explain.py``, ``clip_surgery.py``, ``clip_m2ib.py``) on
+the batch with each image's caption rows (``extras``), every reduction
+per image; CLIP's rise returns None, as in xai_tpu.
 
 Outputs are final ``[B, H, W]`` float32 numpy saliencies, post-processed
 as the single-image registry entries are, so the driver's battery takes
@@ -28,8 +32,11 @@ import numpy as np
 import torch
 
 from . import ablation as AB
+from . import clip_explain as CE
 from . import vit_explain as VE
 from .agi import agi_batch
+from .clip_m2ib import vision_heatmap_iba
+from .clip_surgery import surgery_map, surgery_text_table
 from .gig import guided_ig_batch
 from .guided import guided_grads, layer_gradcam
 from .gradient import (_channel0, _fit_chunk, _idg_sweep, _idgi_sweep,
@@ -44,11 +51,17 @@ BATCH_NAMES = {
     "vit": ("attn", "grad", "cam_attn", "n_rollout", "rollout", "t_attn",
             "attn_ig", "attn_attr", "bi_attn", "InFlow", "t_attr",
             "VIT_CX"),
-    "clip": ("eclip", "eclip_nograd", "eclip_wo", "maskclip", "grad_cam",
-             "selfattn", "game", "rollout", "lrp", "m2ib", "surgery"),
 }
-# the ROADMAP.md item that ports each family still to come
-NOT_PORTED_ITEM = {"clip": "A11"}
+# the extra each batched CLIP name takes (xai_tpu's CLIP_EXTRA_KIND): the
+# caption embedding (txt), the caption ids (tok) or none
+CLIP_EXTRA_KIND = {
+    "eclip": "txt", "eclip_nograd": "txt", "eclip_wo": "txt",
+    "maskclip": "txt", "grad_cam": "txt", "selfattn": "none",
+    "game": "tok", "rollout": "tok", "lrp": "tok", "m2ib": "txt",
+    "surgery": "none",
+}
+BATCH_NAMES["clip"] = tuple(CLIP_EXTRA_KIND)
+_EXTRA_KEY = {"txt": "txt_emb", "tok": "text_tokens"}
 # production driver constants (evaluatePerturbation.py:94-97, 164-176),
 # overridable through batch_attribution(opts=...) for small shapes
 _DEFAULT_OPTS = {
@@ -86,6 +99,40 @@ def vit_saliency(name, bundle, xs, targets, img_hw) -> torch.Tensor:
     abs; no x3 (the driver abs-sums one channel).  In the bundle's
     dtype."""
     return resize_bilinear(VIT_PATCH_MAPS[name](bundle, xs, targets),
+                           (img_hw, img_hw)).abs()
+
+
+# the 12 CLIP names of xai_tpu's registry but rise -> [B, P, P] patch maps
+# at the drivers' settings; ``ex``: the batch's extras
+CLIP_PATCH_MAPS = {
+    "eclip": lambda b, x, ex: CE.grad_eclip(b, x, ex["txt_emb"]),
+    "eclip_nograd": lambda b, x, ex: CE.grad_eclip(b, x, ex["txt_emb"],
+                                                   withgrad=False),
+    "eclip_wo": lambda b, x, ex: CE.grad_eclip(b, x, ex["txt_emb"],
+                                               withksim=False),
+    "maskclip": lambda b, x, ex: CE.mask_clip(b, x, ex["txt_emb"]),
+    "grad_cam": lambda b, x, ex: CE.clip_grad_cam(b, x, ex["txt_emb"]),
+    "selfattn": lambda b, x, ex: CE.self_attn(b, x),
+    "game": lambda b, x, ex: CE.game(b, x, ex["text_tokens"]),
+    "rollout": lambda b, x, ex: CE.clip_rollout(b, x),
+    "lrp": lambda b, x, ex: CE.clip_lrp(b, x, ex["text_tokens"])[1],
+}
+
+
+def clip_saliency(name, bundle, xs, targets, extras, img_hw,
+                  generators=None) -> torch.Tensor:
+    """``[B, H, W]`` CLIP saliencies of ``[B, H, W, C]`` images, abs: the
+    patch maps upsampled bilinearly; surgery's and m2ib's maps, already
+    image-sized, as they are.  ``extras``: ``txt_emb`` ``[B, E]`` and
+    ``text_tokens`` ``[B, L]``, a row an image; ``generators``: each
+    image's, for m2ib's noise."""
+    if name == "surgery":
+        return surgery_map(bundle, xs,
+                           surgery_text_table(bundle, targets)).abs()
+    if name == "m2ib":
+        return vision_heatmap_iba(bundle, xs, extras["txt_emb"],
+                                  generators=generators).abs()
+    return resize_bilinear(CLIP_PATCH_MAPS[name](bundle, xs, extras),
                            (img_hw, img_hw)).abs()
 
 
@@ -200,23 +247,22 @@ def _generic_batch(name, bundle, xs, tg, generators, img_hw, steps, opts):
 
 def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
                       generators, img_hw=224, steps=50, dtype=None,
-                      opts=None):
+                      opts=None, extras=None):
     """``[B, H, W]`` float32 numpy saliencies of a batch in a few fused
     sweeps.  xs: ``[B, H, W, C]`` normalized images (moved to the
     bundle's device); trans_imgs: ``[B, H, W, 3]`` in [0, 1] (lime, agi);
     targets: ``[B]`` classes; generators: one ``torch.Generator`` per
-    image on the bundle's device (sg, gs, shap, lime).  ``opts``
+    image on the bundle's device (sg, gs, shap, lime, m2ib).  ``opts``
     overrides the production method constants (``_DEFAULT_OPTS``).
+    ``extras`` (CLIP): ``{"txt_emb": [B, E], "text_tokens": [B, L]}``,
+    each image's caption embedding and ids (``models/clip.py
+    batch_extras``).
 
     Returns None when xai_tpu has no batched implementation either (rise,
     xrai, TIS, MDA, MDA_dense), so that the caller loops the per-image
-    path.  The CLIP family raises ``NotImplementedError`` naming the
-    ROADMAP.md item that ports it.  A ViT name runs its explainer on the
-    batch, in ``dtype`` on the bundle's cast copy."""
-    if family in NOT_PORTED_ITEM:
-        raise NotImplementedError(
-            f"batched {family} attribution '{name}' is not ported yet "
-            f"(ROADMAP.md item {NOT_PORTED_ITEM[family]})")
+    path.  A ViT or CLIP name runs its explainer on the batch, in
+    ``dtype`` on the bundle's cast copy (CLIP: with the caption
+    embeddings cast too, as xai_tpu casts them)."""
     if not has_batch_impl(family, name):
         return None
     if family == "vit" and name == "VIT_CX":
@@ -239,6 +285,16 @@ def batch_attribution(family, name, bundle, xs, trans_imgs, targets,
                          device=bundle.device)
     if family == "vit":
         sal = vit_saliency(name, bundle.cast(dtype), xs, tg, img_hw)
+    elif family == "clip":
+        key = _EXTRA_KEY.get(CLIP_EXTRA_KIND[name])
+        if key is not None and key not in (extras or {}):
+            raise ValueError(f"batched CLIP '{name}' needs extras['{key}']")
+        ex = {k: torch.as_tensor(v, device=bundle.device)
+              for k, v in (extras or {}).items()}
+        if dtype is not None and "txt_emb" in ex:
+            ex["txt_emb"] = ex["txt_emb"].to(dtype)
+        sal = clip_saliency(name, bundle.cast(dtype), xs, tg, ex, img_hw,
+                            generators)
     elif name in ("ig", "lig"):
         sal = ig_lig_batch(bundle, xs, tg, steps,
                            1.0 if name == "ig" else 0.9, dtype)

@@ -64,7 +64,8 @@ class ModelBundle:
     @property
     def extras(self):
         """The family's static configuration (a ViT's ``ViTConfig``), as
-        xai_tpu's ``bundle.extras`` holds it; None for the CNNs."""
+        xai_tpu's ``bundle.extras`` holds it; None for the CNNs (CLIP:
+        ``models/clip.py CLIPBundle``)."""
         return getattr(self.module, "cfg", None)
 
     @property
@@ -80,9 +81,14 @@ class ModelBundle:
         if dtype is None or dtype == self.dtype:
             return self
         if dtype not in self._casts:
-            self._casts[dtype] = ModelBundle(
-                self.meta, copy.deepcopy(self.module).to(dtype))
+            self._casts[dtype] = self.with_module(
+                copy.deepcopy(self.module).to(dtype))
         return self._casts[dtype]
+
+    def with_module(self, module: nn.Module) -> "ModelBundle":
+        """A bundle of this one's kind and metadata around ``module`` (a
+        cast or randomized copy of this one's)."""
+        return ModelBundle(self.meta, module)
 
     def guided(self) -> "ModelBundle":
         """The bundle with every ReLU under guided backprop's rule

@@ -19,6 +19,8 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 VIT_MEAN = (0.5, 0.5, 0.5)
 VIT_STD = (0.5, 0.5, 0.5)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 def center_crop_resize(img, img_hw: int = 224,

@@ -1,12 +1,14 @@
 """Attribution registry keyed by the reference CLI names.
 
-Counterpart of ``xai_tpu/registry.py`` and ``registry_vit.py``.  Each
-entry maps a context to a ``[H, W]`` numpy saliency.  This holds every
-CNN and ViT entry of xai_tpu's tables; the CLIP family raises naming
-ROADMAP.md item A11.  As in xai_tpu, the 11 ViT names of
-``methods/batch.py VIT_PATCH_MAPS`` (each the batch of one) run in
-float32 whatever the context's dtype, while TIS, VIT_CX, MDA and
-MDA_dense take the context's dtype for their scoring forwards.
+Counterpart of ``xai_tpu/registry.py``, ``registry_vit.py`` and
+``registry_clip.py``.  Each entry maps a context to a ``[H, W]`` numpy
+saliency.  This holds every entry of xai_tpu's tables.  As in xai_tpu,
+the 11 ViT names of ``methods/batch.py VIT_PATCH_MAPS`` and the 12 CLIP
+names (each the batch of one) run in float32 whatever the context's
+dtype, while TIS, VIT_CX, MDA and MDA_dense take the context's dtype for
+their scoring forwards.  A CLIP entry reads its caption from the
+context's ``extras`` (``txt_emb`` ``[1, E]``, ``text_tokens`` ``[1,
+L]``; ``models/clip.py clip_extras``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from .methods import gradient as G
 from .methods import guided as GD
 from .methods.agi import agi
 from .methods import vit_explain as VE
-from .methods.batch import NOT_PORTED_ITEM, VIT_PATCH_MAPS, vit_saliency
+from .methods.batch import (CLIP_EXTRA_KIND, VIT_PATCH_MAPS, clip_saliency,
+                            vit_saliency)
 from .methods.gig import guided_ig
 from .methods.gradient import to_saliency
 from .methods.lime import lime
@@ -45,6 +48,8 @@ class AttrContext:
     # the low-precision sweep dtype (driver --attr_dtype), passed to the
     # entries whose methods take dtype= where xai_tpu passes it
     dtype: Any = None
+    # CLIP: the target's caption, {"txt_emb": [1, E], "text_tokens": [1, L]}
+    extras: Optional[dict] = None
 
 
 def _abs_sum(fn):
@@ -198,14 +203,29 @@ VIT_METHODS.update({
     "MDA": _mda_entry,
     "MDA_dense": lambda c: _mda_entry(c, dense=True),
 })
-FAMILY_METHODS = {"cnn": CNN_METHODS, "vit": VIT_METHODS}
+
+
+# --- CLIP family (evaluatePerturbation.py:373-445): the patch map
+# upsampled bilinearly, abs; surgery and m2ib image-sized, abs ---
+
+def _clip_entry(name):
+    def entry(c):
+        if c.extras is None:
+            raise ValueError(f"CLIP '{name}' needs AttrContext.extras")
+        gens = [_default_generator(c)] if name == "m2ib" else None
+        return clip_saliency(name, c.bundle, c.x[None], [c.target],
+                             c.extras, c.img_hw, gens)[0].cpu().numpy()
+    return entry
+
+
+CLIP_METHODS: Dict[str, Callable] = {n: _clip_entry(n)
+                                     for n in CLIP_EXTRA_KIND}
+CLIP_METHODS["rise"] = CNN_METHODS["rise"]
+FAMILY_METHODS = {"cnn": CNN_METHODS, "vit": VIT_METHODS,
+                  "clip": CLIP_METHODS}
 
 
 def get_attribution(family: str, name: str, ctx: AttrContext) -> np.ndarray:
-    if family not in FAMILY_METHODS:
-        raise NotImplementedError(
-            f"{family} attributions are not ported yet (ROADMAP.md item "
-            f"{NOT_PORTED_ITEM.get(family, '?')})")
     methods = FAMILY_METHODS[family]
     if name not in methods:
         raise KeyError(

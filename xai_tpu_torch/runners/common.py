@@ -18,41 +18,37 @@ import torch
 
 from ..convert.from_jax import load_params
 from ..methods.batch import batch_attribution
-from ..models import resnet, vit
+from ..models import clip, resnet, vit
+from ..models.clip import batch_extras, clip_extras
 from ..models.common import ModelBundle, ModelMeta
 from ..ops.blur import make_blur_fn
-from ..ops.preprocess import (IMAGENET_MEAN, IMAGENET_STD, VIT_MEAN, VIT_STD,
-                              normalize)
+from ..ops.preprocess import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN,
+                              IMAGENET_STD, VIT_MEAN, VIT_STD, normalize)
 from ..registry import AttrContext, get_attribution
 
 ATTR_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
-# reference per-model batch sizes (evaluatePerturbation.py:627-677); the
-# CNN and ViT rows of xai_tpu's table
+# reference per-model batch sizes (evaluatePerturbation.py:627-677), as
+# xai_tpu's table has them
 MODEL_TABLE = {
     "R50": ("cnn", 50), "R101": ("cnn", 50), "R152": ("cnn", 50),
     "RNXT": ("cnn", 25),
     "VIT16": ("vit", 25), "VIT32": ("vit", 50),
+    "CLIP16": ("clip", 25), "CLIP32": ("clip", 50),
     # 1-block-per-stage ResNets for fast CPU runs of the full driver path:
     # TINY_CNN at 224 px, TINY_R at 64 px (the driver-parity model); and
     # timm's vit_tiny_patch16_224 (192 wide, 3 heads)
     "TINY_CNN": ("cnn", 50), "TINY_R": ("cnn", 50), "TINY_VIT": ("vit", 25),
 }
 
-# xai_tpu models whose family this package has not ported yet
-NOT_PORTED = {"CLIP16": "A11", "CLIP32": "A11"}
-
-# each ported family's input normalization (xai_tpu's family_stats)
+# each family's input normalization (xai_tpu's family_stats)
 FAMILY_STATS = {"cnn": (IMAGENET_MEAN, IMAGENET_STD),
-                "vit": (VIT_MEAN, VIT_STD)}
+                "vit": (VIT_MEAN, VIT_STD),
+                "clip": (CLIP_MEAN, CLIP_STD)}
 
 
 def model_entry(model_name: str):
     """(family, batch size) of a CLI model name."""
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"--model {model_name}: its family is not ported yet "
-            f"(ROADMAP.md item {NOT_PORTED[model_name]})")
     return MODEL_TABLE[model_name]
 
 
@@ -83,10 +79,14 @@ def resolve_device(device=None) -> torch.device:
 def build_bundle(model_name: str, params_path: Optional[str] = None,
                  seed: int = 0, device=None) -> ModelBundle:
     """The bundle for a reference CLI model name.  Weights come from an
-    ``xai_tpu``-saved ``.npz`` if given, else a seeded random init."""
+    ``xai_tpu``-saved ``.npz`` if given, else a seeded random init.  A
+    CLIP bundle gets the class-prompt text table of its own text tower,
+    built after the weights are in (xai_tpu's ``build_bundle``)."""
     device = resolve_device(device)
     family, batch = model_entry(model_name)
     state = load_params(params_path) if params_path else None
+    if family == "clip":
+        return clip.make_bundle(model_name, state, seed, batch, device)
     if family == "vit":
         arch = "vit_tiny_patch16_224" if model_name == "TINY_VIT" \
             else model_name
@@ -107,11 +107,7 @@ def build_bundle(model_name: str, params_path: Optional[str] = None,
 
 
 def family_stats(family: str):
-    """(mean, std) of a ported family's input normalization."""
-    if family not in FAMILY_STATS:
-        raise NotImplementedError(
-            f"{family} normalization is not ported yet (ROADMAP.md item "
-            f"A11)")
+    """(mean, std) of a family's input normalization."""
     return FAMILY_STATS[family]
 
 
@@ -157,10 +153,14 @@ def image_generator(seed: int, index: int, device) -> torch.Generator:
 
 def attr_context(bundle, p, dtype=None) -> AttrContext:
     """The registry context of one kept image ``p`` (a dict with ``x``,
-    ``trans_img``, ``target`` and ``generator``)."""
+    ``trans_img``, ``target`` and ``generator``); a CLIP image's also
+    holds its target's caption (``clip_extras``, from ``bundle``'s own
+    text table)."""
     return AttrContext(bundle=bundle, x=p["x"], trans_img=p["trans_img"],
                        target=p["target"], img_hw=bundle.meta.img_hw,
-                       generator=p["generator"], dtype=dtype)
+                       generator=p["generator"], dtype=dtype,
+                       extras=(clip_extras(bundle, p["target"])
+                               if bundle.meta.family == "clip" else None))
 
 
 def batch_attribute(bundle, family, attr_func, pend, dtype=None):
@@ -169,11 +169,13 @@ def batch_attribute(bundle, family, attr_func, pend, dtype=None):
     there is none (rise, xrai).  Returns ([B, H, W] saliencies,
     seconds)."""
     t = time.time()
+    targets = [p["target"] for p in pend]
     sals = batch_attribution(
         family, attr_func, bundle, torch.stack([p["x"] for p in pend]),
-        np.stack([p["trans_img"] for p in pend]),
-        [p["target"] for p in pend], [p["generator"] for p in pend],
-        img_hw=bundle.meta.img_hw, dtype=dtype)
+        np.stack([p["trans_img"] for p in pend]), targets,
+        [p["generator"] for p in pend], img_hw=bundle.meta.img_hw,
+        dtype=dtype, extras=(batch_extras(bundle, targets)
+                             if family == "clip" else None))
     if sals is None:
         sals = np.stack([get_attribution(family, attr_func,
                                          attr_context(bundle, p, dtype))

@@ -15,8 +15,9 @@ construction; the parity tests inject the same draws into both packages.
 
 Per-image flow (reference :520-599): sorted val stream -> correctly-
 classified filter -> sanity gates (blur/black predictions) -> class-balance
-quota -> attribution via the registry (every CNN and ViT method of
-xai_tpu's table) -> run_battery (3 reveal passes fed by the reveal kernel) ->
+quota -> attribution via the registry (every CNN, ViT and CLIP method of
+xai_tpu's tables; a CLIP image gets its target's caption, ``clip_extras``)
+-> run_battery (3 reveal passes fed by the reveal kernel) ->
 accumulate -> CSV.  ``--image_batch N`` gathers N kept images and runs
 one batched attribution (``methods/batch.py``) and one batched battery
 (``parallel/sharded_battery.py``) for them; rise and xrai, which have no
@@ -24,9 +25,9 @@ batched form, attribute the batch's images one by one through the
 registry, and a partial last batch goes image by image with its stored
 targets.
 ``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
-model, on both paths for a CNN and on the batched path for a ViT; image
-by image, only TIS, VIT_CX, MDA and MDA_dense among the ViT names take it
-(their scoring forwards), as in xai_tpu.  ``--save_maps`` writes every scored image's map to
+model, on both paths for a CNN and on the batched path for a ViT or CLIP;
+image by image, only TIS, VIT_CX, MDA and MDA_dense among the ViT and
+CLIP names take it (their scoring forwards), as in xai_tpu.  ``--save_maps`` writes every scored image's map to
 ``<output_dir>/<model>_<attr_func>_maps.h5`` (``data/voc.py
 ExplanationsHDF5``; it needs ``h5py``).
 
@@ -35,7 +36,9 @@ Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
 lime, gig, agi, gc, gbp, ggc, gs, fa, occ, shap, rise, xrai; or
 ``--model VIT16`` / ``VIT32`` with attn, grad, cam_attn, n_rollout,
 rollout, t_attn, attn_ig, attn_attr, bi_attn, InFlow, t_attr, TIS,
-VIT_CX, MDA, MDA_dense; add
+VIT_CX, MDA, MDA_dense; or ``--model CLIP16`` / ``CLIP32`` with eclip,
+eclip_nograd, eclip_wo, maskclip, grad_cam, selfattn, game, rollout,
+lrp, m2ib, surgery, rise; add
 ``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations
@@ -205,7 +208,8 @@ def build_parser():
     p = argparse.ArgumentParser("evaluate_perturbation")
     p.add_argument("--image_count", type=int, default=1000)
     p.add_argument("--model", type=str, default="R101",
-                   help="R50, R101, R152, RNXT, VIT16, VIT32")
+                   help="R50, R101, R152, RNXT, VIT16, VIT32, CLIP16, "
+                        "CLIP32")
     p.add_argument("--attr_func", type=str, default="ig")
     p.add_argument("--cuda_num", type=int, default=0,
                    help="CUDA device index")

@@ -5,8 +5,10 @@ Counterpart of ``xai_tpu/runners/evaluate_sanity.py`` with the same flags
 and CSV layout (the reference's XAI_Survey/evaluations/evaluateSanity.py).
 The randomized model is the family's re-initialization (:108-145; CNN:
 kaiming-uniform on every conv weight, xavier-uniform on the dense weight,
-nothing else; ViT: standard normal on every parameter); the attribution
-target comes from each model's own prediction (:460-471).
+nothing else; ViT: standard normal on every parameter; CLIP: standard
+normal dense kernels and token embedding, zeroed biases, then the text
+table rebuilt with the randomized text tower); the attribution target
+comes from each model's own prediction (:460-471).
 
 The randomized weights are drawn on a CPU ``torch.Generator`` seeded from
 ``--seed + 1`` and then copied to the device, so the card and the CPU run
@@ -17,8 +19,8 @@ one key does.
 
 Run: ``python -m xai_tpu_torch.runners.evaluate_sanity --model R101
 --attr_func ig --synthetic 2 --image_count 2`` (or ``--model VIT16
---attr_func rollout``; add ``--image_batch 4 --attr_dtype bf16`` for the
-batched bf16 path).
+--attr_func rollout``, ``--model CLIP16 --attr_func eclip``; add
+``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations
 
@@ -31,9 +33,11 @@ import time
 
 import torch
 
+from ..convert.from_jax import jax_leaf_name
 from ..data.classmaps import load_correct_mask
 from ..data.imagenet import ImageNetValStream
 from ..metrics.sanity import evaluate as sanity_evaluate
+from ..models.clip import attach_text_table
 from ..models.common import ModelBundle
 from ..registry import get_attribution
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
@@ -41,8 +45,18 @@ from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      normalize_input, predict_classes, reject_unported,
                      resolve_device)
 
-# the ROADMAP.md item that ports each family's randomization
-_FAMILY_ITEM = {"clip": "A11"}
+def _clip_rule(name: str, ndim: int):
+    """xai_tpu's CLIP rule on its leaf names: "normal" for a 2-D
+    ``kernel`` and the token embedding, "zero" for every ``bias``
+    (LayerNorm's too), None for the rest (``conv1``, ``proj``,
+    ``text_projection``, the positional and class embeddings, the
+    LayerNorm scales, ``logit_scale``)."""
+    leaf = jax_leaf_name(name)
+    if leaf.endswith("kernel") and ndim == 2:
+        return "normal"
+    if leaf.endswith("bias"):
+        return "zero"
+    return "normal" if "token_embedding" in leaf else None
 
 
 def randomize_family(bundle, family: str,
@@ -55,18 +69,25 @@ def randomize_family(bundle, family: str,
     stay.  These weights are the images of xai_tpu's ``kernel`` leaves
     under ``convert/from_jax.py``.  vit: every parameter (kernels, biases,
     LayerNorm scales, ``cls_token``, ``pos_embed``) standard normal.
-    Draws come from ``generator`` in the module's parameter order and are
-    copied to the module's device."""
-    if family not in ("cnn", "vit"):
-        raise NotImplementedError(
-            f"{family} weight randomization is not ported yet (ROADMAP.md "
-            f"item {_FAMILY_ITEM.get(family, '?')})")
+    clip: xai_tpu's rule on the JAX leaf each parameter carries
+    (:func:`_clip_rule`), then the text table rebuilt with the randomized
+    text tower (evaluateSanity.py:610, used at :463).  Draws come from
+    ``generator`` in the module's parameter order and are copied to the
+    module's device."""
     module = copy.deepcopy(bundle.module)
     with torch.no_grad():
         for name, w in module.named_parameters():
             if family == "vit":
                 w.copy_(torch.randn(w.shape, generator=generator,
                                     device=generator.device))
+                continue
+            if family == "clip":
+                rule = _clip_rule(name, w.dim())
+                if rule == "zero":
+                    w.zero_()
+                elif rule == "normal":
+                    w.copy_(torch.randn(w.shape, generator=generator,
+                                        device=generator.device))
                 continue
             if not name.endswith(".weight") or w.dim() not in (2, 4):
                 continue
@@ -78,7 +99,9 @@ def randomize_family(bundle, family: str,
             u = torch.rand(w.shape, generator=generator,
                            device=generator.device)
             w.copy_(u * (2 * bound) - bound)
-    return ModelBundle(bundle.meta, module)
+    if family == "clip":
+        return attach_text_table(bundle.with_module(module))
+    return bundle.with_module(module)
 
 
 def _pending(p, target, args, device):

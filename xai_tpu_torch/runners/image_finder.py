@@ -4,10 +4,10 @@ validation image in batches, write the 0/1 mask file that the evaluation
 drivers use as their image filter.
 
 Counterpart of ``xai_tpu/runners/image_finder.py`` with the same flags and
-mask file.  The models of the drivers' table run here; the rest of
+mask file.  The models of the drivers' table run here, CLIP16 and CLIP32
+among them (classified by their class-prompt text table); the rest of
 xai_tpu's extended zoo (VGG, Inception, ConvNeXt, Swin, PVT, MaxViT and
-the timm ViTs) raises naming ROADMAP.md item A13, and the CLIP family
-names A11.
+the timm ViTs) raises naming ROADMAP.md item A13.
 
 Run: ``python -m xai_tpu_torch.runners.image_finder --model R101
 --dataset_path <imagenet-val-dir> --ground_truth

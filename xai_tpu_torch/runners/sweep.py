@@ -5,9 +5,8 @@ re-run-the-shell-line crash recovery).
 Counterpart of ``xai_tpu/runners/sweep.py`` with the same tables, flags
 and ``sweep_manifest.jsonl``.  xai_tpu stripes the runs over its
 processes; the port runs as one process until ROADMAP.md item A14, and a
-multi-process run raises.  A run that fails (a CLIP row raises naming
-A11) is recorded with ``status: error`` and the sweep goes on, as in
-xai_tpu.
+multi-process run raises.  A run that fails is recorded with ``status:
+error`` and the sweep goes on, as in xai_tpu.
 
 Tables mirror XAI_Survey/evaluations/allPertTests.txt (84 rows),
 allSanityTests.txt (72 rows) and allSegTests.txt (76 rows incl. duplicates;
