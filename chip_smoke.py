@@ -87,7 +87,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    driver (eclip, rollout at B=4 in bf16), the seg driver (eclip,
    maskclip at B=4), the image finder, the 9-name CLIP panel (no name
    fails) and the sweep's CLIP16 rows (pert, sanity, seg x eclip,
-   rollout);
+   rollout); then the extended zoo (ROADMAP A13): each of the 15 names
+   of xai_tpu's EXTENDED_ZOO outside the drivers' table (VGG16, VGG19,
+   IV3 at 299 px, CONVNXT, swin_tiny / small / base, pvt_tiny / small /
+   med, MAXVIT, VIT8, VIT_tiny, VIT_base, VIT_large) at full width with
+   seeded random weights through the image finder's entry point on 500
+   synthetic images at --batch_size 100, against ground truth made from
+   the card's own classes, so that its mask must read 1,0,1,0,...; no
+   kernel launches on these paths;
 5. check the answers against a reference on a small input: TINY_R at
    64 px on the card against the same code on the CPU (where every kernel
    wrapper runs its plain version): IG and the battery, and LIME with
@@ -120,6 +127,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in float32, and its driver-sized widths at 48 px with the real prompt
    table: the randomized weights bit-equal, the rebuilt text table within
    1e-5 and the sanity CSV (eclip, rollout, rollout at B=2) within 2e-3;
+   the zoo's families at small widths (a VGG11-shaped VGG, Inception-v3
+   at 75 px, ConvNeXt, Swin with shifted windows, PVT with sr > 1 in the
+   cls stage, MaxViT in both forms) in float32, logits and every tap
+   within 1e-4, and each of the 15 full-width names on 2 images, logits
+   within 1e-3 of max |logit| and top-1 equal unless the CPU's top two
+   lie within that bound;
 6. time one warm IG-50 attribution, one warm battery and one warm LIME
    attribution of R101, LIME split by stage with CUDA events; then R101 at
    B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
@@ -136,7 +149,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    then CLIP16: the text table's build, each CLIP name's s/image image by
    image and the 11 batched at B=4 in float32 and bf16 with peak memory
    and bf16's Spearman rho against float32 (> 0.95), the battery image by
-   image and at B=4, and CLIP32's battery.
+   image and at B=4, and CLIP32's battery; each zoo name's forward at
+   B=100 (images/s with CUDA events, TFLOP/s from torch's flop counter,
+   peak memory) and its finder's images/s end to end (a {"zoo": [...]}
+   line).
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -3175,6 +3191,263 @@ def time_warm_clip(torch, dev, card):
           f"image; 675 forwards each on {card}")
 
 
+# --- the extended model zoo (ROADMAP A13) ---
+
+# the 15 names of xai_tpu's EXTENDED_ZOO outside the drivers' table
+ZOO_NAMES = ("VGG16", "VGG19", "IV3", "CONVNXT", "swin_tiny", "swin_small",
+             "swin_base", "pvt_tiny", "pvt_small", "pvt_med", "MAXVIT",
+             "VIT8", "VIT_tiny", "VIT_base", "VIT_large")
+ZOO_IMAGES = 500           # the finder's stream: five batches of 100
+ZOO_FULL_TOL = 1e-3        # full width, card vs CPU, of max |logit|
+ZOO_SMALL_TOL = 1e-4       # small widths, card vs CPU, relative
+
+
+def zoo_small_models():
+    """Each family at small widths (CPU modules), with the input size that
+    makes it do what XLA does at 224 px and more: SAME padding that pads
+    (ConvNeXt's 2x2 downsampling of a 9 px grid, PVT's sr conv of 3 on an
+    8 px grid), shifted Swin windows beside a window that covers its grid,
+    PVT's spatial reduction in the cls stage; Inception-v3 at its full
+    widths and its smallest input.  name -> (module, px)."""
+    from xai_tpu_torch.models import (convnext, inception, maxvit, pvt,
+                                      swin, vgg)
+    vgg11 = (8, "M", 16, "M", 32, 32, "M", 64, 64, "M", 64, 64, "M")
+    return {
+        "vgg11_small": (vgg.VGG(vgg11, 10, 32, img_hw=32), 32),
+        "inception_v3": (inception.InceptionV3(), 75),
+        "convnext_small_widths": (convnext.ConvNeXt((1, 2), (8, 16), 10),
+                                  36),
+        "swin_small_widths": (swin.SwinTransformer(
+            (2, 2, 2), (2, 2, 4), 8, 4, 10, img_hw=64), 64),
+        "pvt_small_widths": (pvt.PVT(
+            (1, 1, 2), (8, 16, 24), (1, 2, 2), (2, 2, 2), (3, 2, 2),
+            (4, 2, 2), 10, img_hw=32), 32),
+        "maxvit_tv_small_widths": (maxvit.MaxViTTV(
+            (1, 1), (16, 32), 16, 4, 8, 10, img_hw=64), 64),
+        "maxvit_paper_small_widths": (maxvit.MaxViT(
+            (2, 1), (16, 32), 16, 4, 10, img_hw=64), 64),
+    }
+
+
+def check_zoo_reference(torch, dev):
+    """Phase 5, the zoo's families at small widths on the card against the
+    same modules on the CPU, in float32 with TF32 off: logits and every
+    tap within 1e-4 of the CPU's largest value.  The weights are flax's
+    scheme with every LayerNorm, folded-BN and layer-scale entry and
+    every bias and table redrawn, so that each array counts."""
+    import copy
+
+    import numpy as np
+
+    from xai_tpu_torch.models.common import init_flax_default
+
+    for label, (module, hw) in zoo_small_models().items():
+        gen = torch.Generator().manual_seed(7)
+        init_flax_default(module, seed=3)
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf == "scale":
+                    p.copy_(1 + 0.2 * torch.randn(p.shape, generator=gen))
+                elif leaf == "gamma":
+                    p.copy_(0.5 + torch.rand(p.shape, generator=gen))
+                elif leaf != "weight":
+                    p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+        module.eval()
+        x = torch.randn(2, 3, hw, hw, generator=gen)
+        card = copy.deepcopy(module).to(dev)
+        with torch.no_grad():
+            want, want_taps = module(x, taps=True)
+            got, got_taps = card(x.to(dev), taps=True)
+        errs = {"logits": _rel_err(got.cpu().numpy(), want.numpy())}
+        for tap in sorted(want_taps):
+            errs[tap] = _rel_err(got_taps[tap].cpu().numpy(),
+                                 want_taps[tap].numpy())
+        worst = max(errs.values())
+        if not np.isfinite(worst) or worst > ZOO_SMALL_TOL:
+            fail(f"zoo {label} card vs CPU: {errs}")
+        print(f"zoo {label} ({hw} px) card vs CPU: logits and "
+              f"{len(errs) - 1} taps within {worst:.2e} of the CPU's "
+              f"largest (bound {ZOO_SMALL_TOL:g})")
+
+
+def zoo_forward_flops(torch, bundle, x) -> float:
+    """FLOPs of one forward of ``x`` as torch's flop counter counts them
+    from the shapes of its matmuls and convolutions (elementwise work,
+    LayerNorm and softmax not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        bundle.apply(x)
+    return float(counter.get_total_flops())
+
+
+def zoo_head(torch, name, module):
+    """The one ``nn.Linear`` of ``module`` with 1000 outputs: the head
+    of every zoo family."""
+    heads = [m for m in module.modules()
+             if isinstance(m, torch.nn.Linear) and m.out_features == 1000]
+    if len(heads) != 1:
+        fail(f"zoo {name}: {len(heads)} linear layers of 1000 outputs")
+    return heads[0]
+
+
+def drive_zoo_name(torch, dev, out_dir, card, name) -> tuple:
+    """One zoo name at full width with seeded random weights: its bundle
+    built on the CPU, two images on the CPU and on the card (logits within
+    ZOO_FULL_TOL of max |logit|, top-1 equal unless the CPU's top two lie
+    within that bound); then its 1000-way head projected off the stream's
+    mean head input (random weights put most images of the stream in one
+    class, and then a mask that reads 1,0,1,0,... would not show that
+    each image met its own prediction: the projection spreads them, and
+    the even images must fall in two classes at least); ground truth from
+    the card's own classes (even images right, odd ones wrong), the
+    forward alone at B=100 (CUDA events, TFLOP/s, peak memory); the
+    bundle freed; then the image finder through its entry point on the
+    same stream, with the same head, launches counted, whose mask must
+    read 1,0,1,0,... (end-to-end images a second, less the finder's own
+    bundle build).  Returns (launches, the row)."""
+    import statistics as st
+
+    import numpy as np
+
+    from xai_tpu_torch.data.imagenet import ImageNetValStream
+    from xai_tpu_torch.models import get_bundle
+    from xai_tpu_torch.runners import image_finder as fi
+    from xai_tpu_torch.runners.common import normalize_input, predict_classes
+
+    t0 = time.perf_counter()
+    bundle = get_bundle(name, device="cpu")
+    t_cpu_build = time.perf_counter() - t0
+    hw, family = bundle.meta.img_hw, bundle.meta.family
+    n_params = sum(p.numel() for p in bundle.module.parameters())
+    items = list(ImageNetValStream("", hw, synthetic=ZOO_IMAGES))
+    x2 = torch.stack([normalize_input(it.trans_img, family, "cpu")
+                      for it in items[:2]]).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        want = bundle.apply(x2).numpy()
+    bundle.module.to(dev)
+    with torch.no_grad():
+        got = bundle.apply(x2.to(dev)).cpu().numpy()
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    top2 = np.sort(want, axis=1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) <= ZOO_FULL_TOL * scale
+    same = got.argmax(1) == want.argmax(1)
+    if not (np.isfinite(got).all() and np.isfinite(scale) and scale > 0):
+        fail(f"zoo {name}: logits not finite ({scale})")
+    if err > ZOO_FULL_TOL or not np.all(same | tie):
+        fail(f"zoo {name} card vs CPU: {err:.2e} of max |logit| {scale:.3g}"
+             f", top-1 {got.argmax(1)} vs {want.argmax(1)}")
+    flops = zoo_forward_flops(torch, bundle, x2[:1].to(dev))
+
+    xs = torch.stack([normalize_input(it.trans_img, family, dev)
+                      for it in items])
+    head = zoo_head(torch, name, bundle.module)
+    sums = []
+    hook = head.register_forward_hook(lambda m, i, o: sums.append(
+        i[0].reshape(-1, i[0].shape[-1]).double().sum(0)))
+    with torch.no_grad():
+        for i in range(0, ZOO_IMAGES, 100):
+            bundle.apply(xs[i:i + 100].permute(0, 3, 1, 2).contiguous())
+    hook.remove()
+    mu = (sum(sums) / ZOO_IMAGES).cpu()
+    w = head.weight.detach().cpu().double()
+    w_proj = (w - torch.outer(w @ mu, mu) / (mu @ mu)).float()
+    head.weight.copy_(w_proj.to(dev))
+    classes = []
+    for i in range(0, ZOO_IMAGES, 100):
+        classes += predict_classes(bundle, xs[i:i + 100])
+    if len(set(classes[0::2])) < 2:
+        fail(f"zoo {name}: the even images all fall in class {classes[0]} "
+             "with the projected head; the mask would not test them")
+    xb = xs[:100]
+    torch.cuda.reset_peak_memory_stats(dev)
+    predict_classes(bundle, xb)                     # warm
+    times = [_event_s(torch, lambda: predict_classes(bundle, xb))[1]
+             for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t_fwd = st.median(times)
+    del bundle, xs, xb
+    torch.cuda.empty_cache()
+
+    d = os.path.join(out_dir, f"zoo_{name}")
+    os.makedirs(d)
+    gt = os.path.join(d, "ground_truth.txt")
+    with open(gt, "w") as f:
+        f.writelines(f"{c if i % 2 == 0 else (c + 1) % 1000}\n"
+                     for i, c in enumerate(classes))
+    args = fi.build_parser().parse_args(
+        ["--model", name, "--synthetic", str(ZOO_IMAGES), "--batch_size",
+         "100", "--ground_truth", gt, "--class_maps_dir", d])
+    builds = []
+    build = fi.get_bundle
+
+    def timed_build(*a, **k):              # a spy: times the finder's own
+        t = time.perf_counter()
+        out = build(*a, **k)
+        zoo_head(torch, name, out.module).weight.copy_(w_proj.to(dev))
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t)
+        return out
+
+    fi.get_bundle = timed_build
+    try:
+        t0 = time.perf_counter()
+        mask, launches = run_path(
+            torch, f"zoo_{name}",
+            lambda: fi.find_correctly_classified(args, device=dev),
+            NO_LAUNCHES)
+        wall = time.perf_counter() - t0
+    finally:
+        fi.get_bundle = build
+    on_disk = np.loadtxt(os.path.join(
+        d, f"correctly_classified_{name}.txt")).tolist()
+    want_mask = [1, 0] * (ZOO_IMAGES // 2)
+    if mask.tolist() != want_mask or on_disk != want_mask:
+        fail(f"zoo {name}: mask {mask.tolist()[:8]}... (file "
+             f"{on_disk[:8]}...), expected 1,0,1,0,...")
+    torch.cuda.empty_cache()
+    row = {"name": name, "img_hw": hw, "params_m": n_params / 1e6,
+           "gflop_per_image": flops / 1e9,
+           "forward_images_per_s": 100 / t_fwd,
+           "forward_ms_b100": t_fwd * 1e3,
+           "tflops": flops * 100 / t_fwd / 1e12,
+           "finder_images_per_s": ZOO_IMAGES / (wall - builds[0]),
+           "finder_s": wall, "finder_build_s": builds[0],
+           "cpu_build_s": t_cpu_build, "peak_gib_b100": peak,
+           "card_vs_cpu": err, "classes": len(set(classes))}
+    print(f"zoo {name}: {hw} px, {n_params / 1e6:.2f}M params, "
+          f"{flops / 1e9:.2f} GFLOP an image; card vs CPU {err:.2e} of max "
+          f"|logit| {scale:.3g}, top-1 equal"
+          f"{'' if same.all() else ' (a tie within the bound)'}; forward "
+          f"at B=100 {100 / t_fwd:.1f} images/s ({t_fwd * 1e3:.2f} ms, CUDA "
+          f"events, {row['tflops']:.2f} TFLOP/s), peak {peak:.2f} GiB; "
+          f"finder end to end {row['finder_images_per_s']:.1f} images/s "
+          f"({ZOO_IMAGES} synthetic images in {wall:.3f} s, of it "
+          f"{builds[0]:.3f} s building the bundle); mask 1,0,1,0,... "
+          f"({row['classes']} classes among the images, projected head) on "
+          f"{card}")
+    return launches, row
+
+
+def drive_zoo_paths(torch, dev, out_dir, card) -> dict:
+    """Phase 4 and 6, the extended zoo: each of its 15 names outside the
+    drivers' table through the image finder (drive_zoo_name), one model
+    on the card at a time.  Prints a {"zoo": [...]} line of the rows.
+    Returns the launches by path."""
+    t0 = time.perf_counter()
+    by_path, rows = {}, []
+    for name in ZOO_NAMES:
+        by_path[f"zoo_{name}"], row = drive_zoo_name(torch, dev, out_dir,
+                                                     card, name)
+        rows.append(row)
+    print(json.dumps({"zoo": rows, "card": card}))
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s for "
+          f"{len(ZOO_NAMES)} names")
+    return by_path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -3237,6 +3510,7 @@ def main() -> None:
                                            min_scored=scored)
         by_path.update(drive_clip_driver_paths(torch, dev, out_dir,
                                                clip_classes, have))
+        by_path.update(drive_zoo_paths(torch, dev, out_dir, card))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)
@@ -3245,6 +3519,7 @@ def main() -> None:
     check_tiny_vit_drivers(torch, dev)
     check_slice2_reference(torch, dev, have)
     check_clip_reference(torch, dev)
+    check_zoo_reference(torch, dev)
     bundle, per_image = time_warm_image(torch, dev, card)
     time_warm_batch(torch, dev, card, bundle, per_image)
     time_warm_a8(torch, dev, card, bundle)

@@ -6,6 +6,7 @@ import json
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,21 +139,68 @@ def test_image_finder_mask_matches_xai_tpu(tmp_path, params_path):
 
 
 def test_image_finder_zoo_is_xai_tpus_beyond_the_drivers():
+    """The port's zoo is xai_tpu's, name for name and target for target,
+    and every name outside the drivers' table goes through it."""
     from xai_tpu.models import EXTENDED_ZOO
     from xai_tpu.runners.common import MODEL_TABLE
-    assert set(TF.EXTENDED_ZOO) == set(EXTENDED_ZOO) - set(MODEL_TABLE)
+    from xai_tpu_torch.models import EXTENDED_ZOO as PORT_ZOO
+    assert PORT_ZOO == EXTENDED_ZOO
+    assert set(TC.MODEL_TABLE) >= set(MODEL_TABLE) & set(EXTENDED_ZOO)
+    assert len(set(EXTENDED_ZOO) - set(MODEL_TABLE)) == 15
 
 
-@pytest.mark.parametrize("model,item", [("VGG16", "A13"),
-                                        ("swin_tiny", "A13"),
-                                        ("VIT8", "A13"), ("CONVNXT", "A13")])
-def test_image_finder_unported_models_raise(tmp_path, model, item):
-    args = TF.build_parser().parse_args(
-        ["--model", model, "--synthetic", "1", "--class_maps_dir",
-         str(tmp_path)])
-    with pytest.raises(NotImplementedError, match=item):
-        TF.find_correctly_classified(args, device="cpu")
-    assert not os.listdir(tmp_path)
+@pytest.mark.parametrize("model", ["VIT_tiny", "pvt_tiny", "swin_tiny",
+                                   "IV3"])
+def test_image_finder_unported_models_raise(tmp_path, monkeypatch, model):
+    """Once these zoo names raised naming ROADMAP item A13; now each runs
+    at full width in the port's finder.  On one numpy weight tree (an
+    .npz for the port, a pickle for xai_tpu's extended branch) both
+    finders write the same mask file, 1, 0, 1, 0, ... against ground
+    truth made from the port's own classes; IV3 streams 299 px crops and
+    PVT's family normalization is (0.5, 0.5, 0.5) in both."""
+    import pickle
+
+    from xai_tpu import models as JM
+    from xai_tpu_torch.convert.from_jax import load_params
+    from xai_tpu_torch.models import get_bundle
+
+    from test_torch_zoo import jax_module, numpy_params
+
+    hw = 299 if model == "IV3" else 224
+    tree = numpy_params(jax_module(model), hw, seed=4)
+    npz = save_params(tree, str(tmp_path / "params.npz"))
+    pkl = tmp_path / "params.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump(jax.tree.map(np.asarray, tree), f)
+    # xai_tpu's extended branch inits the zoo model, then puts the pickle
+    # in: hand it the tree to skip the full-width flax init
+    build = JM.get_bundle
+    monkeypatch.setattr(JM, "get_bundle", lambda name, params=None,
+                        key=None: build(name, params=tree))
+
+    bundle = get_bundle(model, load_params(npz), device="cpu")
+    ref_meta = JM.get_bundle(model).meta
+    assert bundle.meta.img_hw == ref_meta.img_hw == hw
+    assert bundle.meta.family == ref_meta.family
+    xs = torch.stack([TC.normalize_input(it.trans_img, bundle.meta.family,
+                                         "cpu")
+                      for it in ImageNetValStream("", hw, synthetic=4)])
+    preds = TC.predict_classes(bundle, xs)
+    gt = [p if i % 2 == 0 else (p + 1) % 1000 for i, p in enumerate(preds)]
+    gt_path = tmp_path / "gt.txt"
+    gt_path.write_text("".join(f"{g}\n" for g in gt))
+    flags = ["--model", model, "--synthetic", "4", "--batch_size", "2",
+             "--ground_truth", str(gt_path)]
+    ref = JF.find_correctly_classified(JF.build_parser().parse_args(
+        flags + ["--params_path", str(pkl), "--class_maps_dir",
+                 str(tmp_path / "jax")]))
+    got = TF.find_correctly_classified(TF.build_parser().parse_args(
+        flags + ["--params_path", npz, "--class_maps_dir",
+                 str(tmp_path / "torch")]), device="cpu")
+    assert got.tolist() == ref.tolist() == [1, 0] * 2
+    name = f"correctly_classified_{model}.txt"
+    assert ((tmp_path / "torch" / name).read_text()
+            == (tmp_path / "jax" / name).read_text())
 
 
 # --- qualitative panels ---

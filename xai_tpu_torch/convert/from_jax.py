@@ -14,6 +14,12 @@ reads that file and renames and transposes each array into the port's
   port's ``FoldedBN`` and ``LayerNorm`` keep flax's names), dense and conv
   ``bias``, the ViT's ``cls_token`` and ``pos_embed``.
 
+The zoo's families name their submodules as flax does
+(``stage0_block1.attn.qkv``, ``Mixed_5b.branch1x1.conv``,
+``rel_bias_table``, ``pos_embed3``, ...), so the same rule carries them,
+and a builder's strict ``load_state_dict`` names any key by which a state
+dict fails to cover its module.
+
 Only ``.npz`` is read: ``.msgpack`` needs flax, and pickle runs code.
 """
 from __future__ import annotations
@@ -43,8 +49,10 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray]
                 arr = arr.T
             else:
                 raise ValueError(f"unexpected kernel rank {arr.ndim}: {key}")
+        # the reshape keeps a scalar 0-d, as the module's parameter is
+        # (ascontiguousarray makes it [1])
         out[".".join(path + [leaf])] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+            np.ascontiguousarray(arr).reshape(arr.shape))
     return out
 
 

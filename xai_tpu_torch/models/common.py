@@ -17,6 +17,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 
@@ -174,4 +175,104 @@ def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.copy_(w * std)
             if m.bias is not None:
                 m.bias.zero_()
+    return model
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """XLA's ``"SAME"`` padding of one spatial axis: the output has
+    ceil(size / stride) positions and the total padding they need is split
+    low = total // 2, high = total - low."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2dSame(nn.Conv2d):
+    """``nn.Conv2d`` with flax's default padding, XLA's ``"SAME"``
+    (:func:`same_pads`), at any stride: torch's ``padding="same"`` refuses
+    a stride above 1.  A kernel that divides the input at its own stride
+    pads nothing."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride=stride, padding=0,
+                         bias=bias)
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        top, bottom = same_pads(x.shape[-2], kh, sh)
+        left, right = same_pads(x.shape[-1], kw, sw)
+        if top or bottom or left or right:
+            x = F.pad(x, (left, right, top, bottom))
+        return self._conv_forward(x, self.weight, self.bias)
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on an ``[B, H, W, C]`` batch, returned ``[B, H', W', C']``:
+    the NCHW view of a channels-last tensor, which cuDNN convolves in
+    place of a layout copy."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class FoldedBN(nn.Module):
+    """Inference BatchNorm as y = x * scale + bias, per channel: axis 1
+    (NCHW) or, with ``channels_last``, the last axis (NHWC)."""
+
+    def __init__(self, features: int, channels_last: bool = False):
+        super().__init__()
+        self.channels_last = channels_last
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        if self.channels_last:
+            return x * self.scale + self.bias
+        return x * self.scale[:, None, None] + self.bias[:, None, None]
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm(epsilon=eps)`` over the last axis as flax
+    computes it: float32 statistics with the fast variance max(0, E[x^2] -
+    E[x]^2), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    float32, cast back to the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = ((x32 * x32).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        y = (x32 - mu) * mul + self.bias.float()
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+
+
+@torch.no_grad()
+def init_flax_default(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random weights in flax's default scheme for the zoo's
+    families, drawn from one CPU generator in module order: LeCun-normal
+    kernels and zero biases (:func:`lecun_init_`), then every
+    ``rel_bias_table`` and ``pos_embed*`` from normal(0, 0.02), a zero
+    ``cls_token``, ConvNeXt's layer scale ``gamma`` at flax's 1e-6,
+    LayerNorm and FoldedBN scale 1 and bias 0.  The numbers
+    differ from JAX's PRNG; tests that compare the two packages carry the
+    JAX weights over instead."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    lecun_init_(model, gen)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "rel_bias_table" or leaf.startswith("pos_embed"):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        elif leaf == "cls_token":
+            p.zero_()
+        elif leaf == "gamma":
+            p.fill_(1e-6)
+    for m in model.modules():
+        if isinstance(m, (LayerNorm, FoldedBN)):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
     return model

@@ -16,19 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import lecun_init_
-
-
-class FoldedBN(nn.Module):
-    """Inference BatchNorm as y = x * scale + bias (per channel)."""
-
-    def __init__(self, features: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x):
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+from .common import FoldedBN, ModelBundle, ModelMeta, lecun_init_
 
 
 def _conv(cin, cout, k, stride=1, padding=0, groups=1):
@@ -156,3 +144,16 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     weights over instead."""
     return lecun_init_(model, torch.Generator(device="cpu").manual_seed(seed))
 
+
+def make_bundle(arch_or_cli: str, state: Optional[dict] = None,
+                seed: int = 0, batch_size: int = 50,
+                device=None) -> ModelBundle:
+    """The bundle of a ResNet arch or CLI name: seeded random weights
+    (:func:`init_random`), or ``state`` (the port's state dict), on
+    ``device``."""
+    model = init_random(make_model(CLI_ARCH.get(arch_or_cli, arch_or_cli)),
+                        seed)
+    if state is not None:
+        model.load_state_dict(state)
+    meta = ModelMeta(name=arch_or_cli, family="cnn", batch_size=batch_size)
+    return ModelBundle(meta, model.to(device))

@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.preprocess import VIT_MEAN, VIT_STD
-from .common import ModelBundle, ModelMeta, lecun_init_
+from .common import LayerNorm, ModelBundle, ModelMeta, lecun_init_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,27 +66,6 @@ CONFIGS = {
 }
 CLI_ARCH = {"VIT16": "vit_base_patch16_224", "VIT32": "vit_base_patch32_224",
             "VIT8": "vit_base_patch8_224"}
-
-
-class LayerNorm(nn.Module):
-    """``flax.linen.LayerNorm(epsilon=1e-6)`` as flax computes it: float32
-    statistics with the fast variance max(0, E[x^2] - E[x]^2), then
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast
-    back to the compute dtype."""
-
-    def __init__(self, dim: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x):
-        x32 = x.float()
-        mu = x32.mean(-1, keepdim=True)
-        var = ((x32 * x32).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale.float()
-        y = (x32 - mu) * mul + self.bias.float()
-        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
 
 
 class Attention(nn.Module):

@@ -91,16 +91,12 @@ def build_bundle(model_name: str, params_path: Optional[str] = None,
         arch = "vit_tiny_patch16_224" if model_name == "TINY_VIT" \
             else model_name
         return vit.make_bundle(arch, state, seed, batch, device)
-    if model_name in ("TINY_CNN", "TINY_R"):
-        module = resnet.ResNet(layers=(1, 1, 1, 1))
-        meta = (ModelMeta(name="TINY_R", family="cnn", img_hw=64,
-                          batch_size=batch) if model_name == "TINY_R" else
-                ModelMeta(name="resnet50", family="cnn", batch_size=batch))
-    else:
-        module = resnet.make_model(resnet.CLI_ARCH.get(model_name,
-                                                       model_name))
-        meta = ModelMeta(name=model_name, family=family, batch_size=batch)
-    resnet.init_random(module, seed)
+    if model_name not in ("TINY_CNN", "TINY_R"):
+        return resnet.make_bundle(model_name, state, seed, batch, device)
+    module = resnet.init_random(resnet.ResNet(layers=(1, 1, 1, 1)), seed)
+    meta = (ModelMeta(name="TINY_R", family="cnn", img_hw=64,
+                      batch_size=batch) if model_name == "TINY_R" else
+            ModelMeta(name="resnet50", family="cnn", batch_size=batch))
     if state is not None:
         module.load_state_dict(state)
     return ModelBundle(meta, module.to(device))

@@ -5,9 +5,13 @@ drivers use as their image filter.
 
 Counterpart of ``xai_tpu/runners/image_finder.py`` with the same flags and
 mask file.  The models of the drivers' table run here, CLIP16 and CLIP32
-among them (classified by their class-prompt text table); the rest of
-xai_tpu's extended zoo (VGG, Inception, ConvNeXt, Swin, PVT, MaxViT and
-the timm ViTs) raises naming ROADMAP.md item A13.
+among them (classified by their class-prompt text table), and so does
+every other name of the extended zoo (``models/__init__.py
+EXTENDED_ZOO``: VGG, Inception-v3, ConvNeXt, Swin, PVT, MaxViT and the
+timm ViTs), each at its own input size (IV3 streams 299 px crops) and
+normalized as its family is.  ``--params_path`` reads the flat ``.npz``
+of xai_tpu's ``save_params`` or of ``python -m xai_tpu_torch.convert.cli``
+(xai_tpu's extended branch unpickles; the port never does).
 
 Run: ``python -m xai_tpu_torch.runners.image_finder --model R101
 --dataset_path <imagenet-val-dir> --ground_truth
@@ -20,34 +24,32 @@ import argparse
 import numpy as np
 import torch
 
+from ..convert.from_jax import load_params
 from ..data.classmaps import load_ground_truth, save_correct_mask
 from ..data.imagenet import ImageNetValStream
-from .common import (build_bundle, model_entry, normalize_input,
-                     predict_classes, resolve_device)
-
-# the names of xai_tpu's extended zoo (xai_tpu/models/__init__.py
-# EXTENDED_ZOO) that neither the drivers' table nor a family slice covers
-EXTENDED_ZOO = ("VGG19", "VGG16", "VIT8", "VIT_tiny", "VIT_base",
-                "VIT_large", "CONVNXT", "MAXVIT", "IV3", "swin_tiny",
-                "swin_small", "swin_base", "pvt_tiny", "pvt_small",
-                "pvt_med")
+from ..models import get_bundle
+from .common import (MODEL_TABLE, build_bundle, model_entry,
+                     normalize_input, predict_classes, resolve_device)
 
 
 def find_correctly_classified(args, device=None) -> np.ndarray:
     """Write ``correctly_classified_<model>.txt``; returns the mask.
     ``device`` defaults to ``cuda:<--cuda_num>``."""
-    if args.model in EXTENDED_ZOO:
-        raise NotImplementedError(
-            f"--model {args.model}: the extended model zoo is not ported "
-            "yet (ROADMAP.md item A13)")
     device = resolve_device(device or f"cuda:{args.cuda_num}")
-    family, _ = model_entry(args.model)
-    bundle = build_bundle(args.model, args.params_path, device=device)
+    if args.model in MODEL_TABLE:
+        family, _ = model_entry(args.model)
+        bundle = build_bundle(args.model, args.params_path, device=device)
+    else:
+        # the extended zoo (the reference's image finder model choices)
+        state = load_params(args.params_path) if args.params_path else None
+        bundle = get_bundle(args.model, state, device=device)
+        family = bundle.meta.family
     gnd = load_ground_truth(args.ground_truth)
     n_total = args.total or len(gnd)
     mask = np.zeros(n_total, np.int64)
 
-    # the bundle's own input resolution (the tiny CI models run 64 px)
+    # the bundle's own input resolution (IV3 299 px, the tiny CI models
+    # 64)
     stream = ImageNetValStream(args.dataset_path, img_hw=bundle.meta.img_hw,
                                synthetic=args.synthetic)
     buf_x, buf_idx = [], []
@@ -82,7 +84,8 @@ def build_parser():
                    default="ILSVRC2012_validation_ground_truth.txt")
     p.add_argument("--class_maps_dir", type=str, default="class_maps")
     p.add_argument("--params_path", type=str, default="",
-                   help="params saved by xai_tpu's save_params (.npz)")
+                   help="params saved by xai_tpu's save_params or by "
+                   "xai_tpu_torch.convert.cli (.npz)")
     p.add_argument("--batch_size", type=int, default=100)
     p.add_argument("--total", type=int, default=0)
     p.add_argument("--synthetic", type=int, default=0)
