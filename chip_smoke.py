@@ -152,7 +152,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    image and at B=4, and CLIP32's battery; each zoo name's forward at
    B=100 (images/s with CUDA events, TFLOP/s from torch's flop counter,
    peak memory) and its finder's images/s end to end (a {"zoo": [...]}
-   line).
+   line);
+7. multi-process runs (ROADMAP A14), after phase 4's paths and on its
+   files: two processes on the one card, joined by gloo on localhost
+   (parallel/multi_host.py), each driving with --shard_images
+   evaluate_perturbation, evaluate_sanity and evaluate_imagenet_seg on
+   R101 ig at --synthetic 2 (phase 4's flags), imagenet_seg_eval on
+   TINY_R grad at --synthetic 4 --acc_cutoff 0, and the sweep of TINY_R
+   grad and ig into one shared directory; each prints the card count,
+   its stripe, what each driver returned and its launches.  Process 0's
+   CSVs and TXTs must be within 1e-4 of the single-process runs of the
+   same flags, runtime rows aside; process 1 writes no result file; both
+   return the same scores; the shared manifest holds both sweep runs ok;
+   the two processes' launches add up to the single-process run's (blur
+   1, reveal 15 a scored R101 image, quickshift 0).  A worker that exits
+   non-zero or outlasts its timeout fails the run;
+8. the profiler: evaluate_perturbation's main with --profile_dir on one
+   synthetic image of R101 ig, VIT16 rollout and CLIP16 eclip: each
+   Chrome trace must hold device kernels, blur and reveal among them,
+   and its CSV must be within 1e-4 of the same run unprofiled; prints
+   the top kernels by summed device time, the busy share of the traced
+   window and of the kernels' span, and a {"profiles": [...]} line.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -3448,6 +3468,366 @@ def drive_zoo_paths(torch, dev, out_dir, card) -> dict:
     return by_path
 
 
+# --- multi-process runs and the profiler (ROADMAP A14) ---
+
+# the two-process phase: (label, driver, flags) each worker runs with
+# --shard_images (the sweep stripes its runs without it), and where the
+# single-process run of the same flags is: (the label of the run in
+# by_path, the directory of its result files under the run's out_dir)
+TWO_PROCESS_RUNS = [
+    ("pert_R101_ig", "pert", ["--model", "R101", "--attr_func", "ig",
+                              "--synthetic", "2", "--image_count", "2"],
+     "ig"),
+    ("sanity_R101_ig", "sanity", ["--model", "R101", "--attr_func", "ig",
+                                  "--synthetic", "2", "--image_count", "2"],
+     "sanity_ig"),
+    ("seg_R101_ig", "seg", ["--model", "R101", "--attr_func", "ig",
+                            "--synthetic", "2"], "seg_ig"),
+    ("seg_eval_TINY_R_grad", "seg_eval",
+     ["--model", "TINY_R", "--method", "grad", "--synthetic", "4",
+      "--acc_cutoff", "0"], "tiny_r_seg_eval_grad"),
+    ("sweep_TINY_R", "sweep",
+     ["--drivers", "pert", "--models", "TINY_R", "--methods", "grad,ig",
+      "--synthetic", "2", "--image_count", "2"], "tiny_r_sweep"),
+]
+WORKER_TIMEOUT_S = 420
+RUNTIME_ROWS = ("Attr Avg Runtime", "Total Runtime")
+
+
+def driver_entry(driver: str):
+    """(module, entry function) of a driver of the two-process phase."""
+    from xai_tpu_torch.runners import evaluate_imagenet_seg as eg
+    from xai_tpu_torch.runners import evaluate_perturbation as ep
+    from xai_tpu_torch.runners import evaluate_sanity as es
+    from xai_tpu_torch.runners import imagenet_seg_eval as ie
+    from xai_tpu_torch.runners import sweep as sw
+
+    mod = {"pert": ep, "sanity": es, "seg": eg, "seg_eval": ie,
+           "sweep": sw}[driver]
+    entry = {"pert": "evaluate_perturbation", "sanity": "evaluate_sanity",
+             "seg": "evaluate_imagenet_seg", "seg_eval": "run",
+             "sweep": "run_sweep"}[driver]
+    return mod, getattr(mod, entry)
+
+
+def result_files(run_dir: str, driver: str, flags: list) -> list:
+    """The result files a run of the two-process phase writes."""
+    def flag(name, default=None):
+        return flags[flags.index(name) + 1] if name in flags else default
+
+    model = flag("--model") or flag("--models")
+    if driver == "sweep":
+        return [os.path.join(run_dir, model, f"{m}_{flag('--image_count')}"
+                             f"_images.csv")
+                for m in flag("--methods").split(",")]
+    if driver == "seg_eval":
+        return [os.path.join(run_dir, f"{model}_{flag('--method')}.txt")]
+    name = f"{flag('--attr_func')}_{flag('--image_count', '0')}_images"
+    return [os.path.join(run_dir, model,
+                         name + ("" if driver == "seg" else ".csv"))]
+
+
+def read_result(path: str) -> dict:
+    """A driver's CSV or TXT as {row: number}, runtime rows left out."""
+    if not path.endswith(".csv"):
+        return _read_seg_txt(path)
+    with open(path) as f:
+        return {r[0]: float(r[1]) for r in csv.reader(f)
+                if r and r[0] not in RUNTIME_ROWS}
+
+
+def two_process_worker(rank: int, port: int, out_dir: str, device: str,
+                       runs: str) -> None:
+    """One of the two processes of the two-process phase, started by
+    :func:`check_two_processes` as ``python3 -c``: joins the gloo group on
+    ``127.0.0.1:<port>`` (``multi_host.initialize``), runs each of
+    ``runs`` (TWO_PROCESS_RUNS as JSON) with --shard_images on
+    ``device``, each kernel
+    counter zeroed just before a run and read just after, and prints one
+    ``TWO_PROCESS {...}`` line: its rank, and for each run the dataset
+    indices it attributed (its stripe), what the driver returned, its
+    launches and seconds (the sweep's stripe: the runs it took)."""
+    import torch
+
+    from xai_tpu_torch.parallel import multi_host
+    from xai_tpu_torch.runners.common import resolve_device
+
+    t_start = time.perf_counter()
+    multi_host.initialize(f"127.0.0.1:{port}", 2, rank)
+    print(f"two-process worker {rank}: torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}", flush=True)
+    dev = resolve_device(device)
+    wrappers = kernel_wrappers()
+    out = {"rank": rank, "runs": {}}
+    for label, driver, flags, _ in json.loads(runs):
+        mod, entry = driver_entry(driver)
+        shared = driver == "sweep"
+        run_dir = os.path.join(out_dir, label + ("_shared" if shared
+                                                 else f"_rank{rank}"))
+        args = mod.build_parser().parse_args(
+            flags + ([] if shared else ["--shard_images"])
+            + ["--output_dir", run_dir])
+        stripe = []
+        generator = getattr(mod, "image_generator", None)
+        if generator is not None:
+            def spy(seed, index, device_, real=generator):
+                stripe.append(index)
+                return real(seed, index, device_)
+            mod.image_generator = spy
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        try:
+            returned = entry(args, device=dev)
+        finally:
+            if generator is not None:
+                mod.image_generator = generator
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if driver == "sweep":           # the sweep stripes its runs
+            stripe = [r["attr_func"] for r in returned]
+        out["runs"][label] = {
+            "stripe": sorted(set(stripe)), "returned": returned,
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_start
+    print("TWO_PROCESS " + json.dumps(out), flush=True)
+
+
+def single_process_references(torch, dev, out_dir) -> dict:
+    """The single-process TINY_R runs of the two-process phase (its R101
+    runs are phase 4's), each through run_path with its launches: the
+    sweep's two pert runs score one image a class of the first two
+    (the quota at --image_count 2), each battery blur 1 and at 64 px
+    3 * ceil(65 / 45) = 6 reveals."""
+    classes = model_classes(torch, dev, "TINY_R", 2)
+    scored = 2 * len(set(classes))
+    by_path = {}
+    for label, driver, flags, single in TWO_PROCESS_RUNS:
+        if not single.startswith("tiny_r"):
+            continue
+        mod, entry = driver_entry(driver)
+        args = mod.build_parser().parse_args(
+            flags + ["--output_dir", os.path.join(out_dir, single)])
+        want = (dict(NO_LAUNCHES, blur_planes=scored,
+                     reveal_batch=3 * math.ceil(65 / 45) * scored)
+                if driver == "sweep" else NO_LAUNCHES)
+        _, by_path[single] = run_path(
+            torch, single, lambda: entry(args, device=dev), want)
+    return by_path
+
+
+def check_two_processes(torch, dev, out_dir, by_path) -> dict:
+    """Phase 7: two processes on the one card, joined by gloo on
+    localhost, each driving TWO_PROCESS_RUNS with --shard_images
+    (:func:`two_process_worker`).  Fails unless both exit 0 within
+    WORKER_TIMEOUT_S; process 0's CSVs and TXTs are within 1e-4 of the
+    single-process runs of the same flags (``by_path`` holds their
+    launches; single_process_references makes the TINY_R ones), runtime
+    rows aside; process 1 wrote no result file; both
+    returned the same scores; the shared sweep manifest holds both runs
+    ok; and the two processes' launches add up to the single-process
+    run's.  Returns each process's launches, summed over its runs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    two_dir = os.path.join(out_dir, "two_process")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " chip_smoke.two_process_worker(int(sys.argv[2]), "
+            "int(sys.argv[3]), *sys.argv[4:7])")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, here, str(rank), str(port), two_dir,
+         str(dev), json.dumps(TWO_PROCESS_RUNS)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=here) for rank in (0, 1)]
+    outs = []
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                stdout, stderr = p.communicate(timeout=WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"two-process worker {rank} did not finish within "
+                     f"{WORKER_TIMEOUT_S} s")
+            print(stdout, end="")
+            if p.returncode != 0:
+                fail(f"two-process worker {rank} exited {p.returncode}: "
+                     f"{stderr[-3000:]}")
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("TWO_PROCESS ")]
+            if len(lines) != 1:
+                fail(f"two-process worker {rank} printed no result line")
+            outs.append(json.loads(lines[0][len("TWO_PROCESS "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+
+    launches = [{n: 0 for n in NO_LAUNCHES} for _ in outs]
+    for label, driver, flags, single in TWO_PROCESS_RUNS:
+        runs = [o["runs"][label] for o in outs]
+        for total, run in zip(launches, runs):
+            for n, c in run["launches"].items():
+                total[n] += c
+        summed = {n: sum(r["launches"][n] for r in runs)
+                  for n in NO_LAUNCHES}
+        if summed != by_path[single]:
+            fail(f"two-process {label}: the processes launched "
+                 f"{[r['launches'] for r in runs]}, summed {summed}; the "
+                 f"single-process run {by_path[single]}")
+        if runs[0]["returned"] != runs[1]["returned"] and driver != "sweep":
+            fail(f"two-process {label}: the processes returned "
+                 f"{runs[0]['returned']} and {runs[1]['returned']}")
+        if driver == "sweep":
+            shared = os.path.join(two_dir, f"{label}_shared")
+            with open(os.path.join(shared, "sweep_manifest.jsonl")) as f:
+                manifest = [json.loads(line) for line in f]
+            methods = flags[flags.index("--methods") + 1].split(",")
+            if sorted((r["attr_func"], r["status"]) for r in manifest) != \
+                    sorted((m, "ok") for m in methods) or [
+                        [r["attr_func"] for r in run["returned"]]
+                        for run in runs] != [[m] for m in methods]:
+                fail(f"two-process {label}: manifest {manifest}")
+            got_files = result_files(shared, driver, flags)
+        else:
+            rank1 = os.path.join(two_dir, f"{label}_rank1")
+            if os.path.exists(rank1):
+                fail(f"two-process {label}: process 1 wrote "
+                     f"{os.listdir(rank1)}")
+            got_files = result_files(os.path.join(two_dir, f"{label}_rank0"),
+                                     driver, flags)
+        want_files = result_files(os.path.join(out_dir, single), driver,
+                                  flags)
+        worst = 0.0
+        for got_path, want_path in zip(got_files, want_files):
+            got, want = read_result(got_path), read_result(want_path)
+            err = max((abs(got[k] - want[k]) for k in want),
+                      default=math.inf) if sorted(got) == sorted(want) \
+                else math.inf
+            if not err < 1e-4:
+                fail(f"two-process {label}: {got_path} {got} against the "
+                     f"single-process {want}")
+            worst = max(worst, err)
+        print(f"two-process {label}: stripes "
+              f"{[r['stripe'] for r in runs]}, launches "
+              f"{[r['launches'] for r in runs]} (single process "
+              f"{by_path[single]}), seconds "
+              f"{[round(r['seconds'], 3) for r in runs]}; process 0's "
+              f"files within {worst:.2e} of the single-process run (bound "
+              f"1e-4), process 1 wrote none")
+    print(f"two-process phase: {wall:.1f} s wall, workers "
+          f"{outs[0]['seconds']:.1f} / {outs[1]['seconds']:.1f} s from "
+          f"start to result line")
+    return {f"two_process_rank{o['rank']}": total
+            for o, total in zip(outs, launches)}
+
+
+# the profile phase: (model, attr_func); one synthetic image each, at
+# --image_count 1000 (CLIP's random weights need it, clip_paths)
+PROFILE_PATHS = [("R101", "ig"), ("VIT16", "rollout"), ("CLIP16", "eclip")]
+
+
+def trace_summary(path: str, top: int = 8) -> dict:
+    """A Chrome trace's device kernels: count, summed device time (and
+    that of the port's blur and reveal kernels), the busy share of the
+    traced window and of the kernels' own span, and the ``top`` kernels
+    by summed time."""
+    from xai_tpu_torch.runners.profile_main_path import _busy_us
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        calls_us = by_name.setdefault(e["name"], [0, 0.0])
+        calls_us[0] += 1
+        calls_us[1] += e["dur"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events]
+    k_spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
+    busy = _busy_us(k_spans)
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    k_window = (max(e for _, e in k_spans) - min(s for s, _ in k_spans)
+                if k_spans else 0.0)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    port = {k: sum(us for n, (_, us) in by_name.items() if k in n)
+            for k in ("blur", "reveal")}
+    return {"kernels": len(kernels), "kernel_us": sum(
+        v[1] for v in by_name.values()), "port_kernel_us": port,
+        "busy_us": busy,
+        "window_us": window, "kernel_span_us": k_window,
+        "names": list(by_name),
+        "top": [{"name": n, "calls": c, "us": us}
+                for n, (c, us) in ranked[:top]]}
+
+
+def check_profiles(torch, dev, out_dir, card) -> dict:
+    """Phase 8: evaluate_perturbation through ``main`` with --profile_dir
+    on PROFILE_PATHS, one synthetic image each, and the same flags
+    without it.  Fails unless each trace holds device kernels, the blur
+    and reveal kernels among them, and the profiled CSV is within 1e-4 of
+    the unprofiled one; prints the top kernels by summed device time and
+    the busy share.  Returns the launches by path (blur 1, reveal 15
+    each)."""
+    from xai_tpu_torch.runners import evaluate_perturbation as ep
+
+    by_path, rows = {}, []
+    want = dict(NO_LAUNCHES, blur_planes=1, reveal_batch=REVEAL_PER_BATTERY)
+    for model, attr in PROFILE_PATHS:
+        label = f"profile_{model}_{attr}"
+        flags = ["--model", model, "--attr_func", attr, "--synthetic", "1",
+                 "--image_count", "1000"]
+        d = os.path.join(out_dir, label)
+        _, by_path[f"{label}_plain"] = run_path(
+            torch, f"{label}_plain", lambda: ep.main(
+                flags + ["--output_dir", os.path.join(d, "plain")],
+                device=dev), want)
+        t0 = time.perf_counter()
+        _, by_path[label] = run_path(
+            torch, label, lambda: ep.main(
+                flags + ["--output_dir", os.path.join(d, "profiled"),
+                         "--profile_dir", os.path.join(d, "trace")],
+                device=dev), want)
+        wall = time.perf_counter() - t0
+        trace = os.path.join(d, "trace", f"{model}_{attr}_p0.trace.json")
+        size = os.path.getsize(trace)
+        s = trace_summary(trace)
+        names = " ".join(s["names"])
+        if not s["kernels"] or "blur" not in names or "reveal" not in names:
+            fail(f"{label}: the trace holds {s['kernels']} device kernels "
+                 f"(blur and reveal among them: {'blur' in names}, "
+                 f"{'reveal' in names})")
+        name = f"{attr}_1000_images.csv"
+        got = read_result(os.path.join(d, "profiled", model, name))
+        plain = read_result(os.path.join(d, "plain", model, name))
+        err = max(abs(got[k] - plain[k]) for k in plain)
+        if sorted(got) != sorted(plain) or not err < 1e-4:
+            fail(f"{label}: profiled CSV {got}, unprofiled {plain}")
+        print(f"{label}: traced run {wall:.3f} s wall (bundle build "
+              f"included), trace {size / 2**20:.2f} MiB; {s['kernels']} "
+              f"device kernels, summed {s['kernel_us'] / 1e3:.3f} ms; busy "
+              f"{s['busy_us'] / 1e3:.3f} ms = "
+              f"{100 * s['busy_us'] / s['window_us']:.2f} % of the traced "
+              f"window ({s['window_us'] / 1e6:.3f} s), "
+              f"{100 * s['busy_us'] / s['kernel_span_us']:.2f} % of the "
+              f"kernels' span ({s['kernel_span_us'] / 1e3:.3f} ms); blur "
+              f"{s['port_kernel_us']['blur']:.2f} us and reveal "
+              f"{s['port_kernel_us']['reveal']:.2f} us of device time; CSV "
+              f"within {err:.2e} of the unprofiled run; on {card}")
+        for k in s["top"]:
+            print(f"  {k['us'] / 1e3:10.3f} ms {k['calls']:6d} calls  "
+                  f"{k['name'][:100]}")
+        rows.append(dict(label=label, wall_s=wall, trace_bytes=size,
+                         **{k: v for k, v in s.items() if k != "names"}))
+    print(json.dumps({"profiles": rows}))
+    return by_path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -3511,6 +3891,9 @@ def main() -> None:
         by_path.update(drive_clip_driver_paths(torch, dev, out_dir,
                                                clip_classes, have))
         by_path.update(drive_zoo_paths(torch, dev, out_dir, card))
+        by_path.update(single_process_references(torch, dev, out_dir))
+        by_path.update(check_two_processes(torch, dev, out_dir, by_path))
+        by_path.update(check_profiles(torch, dev, out_dir, card))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)

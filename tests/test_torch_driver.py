@@ -9,6 +9,7 @@ batched path (``--image_batch 2`` over three images: one batch and a
 one-image tail) is held against xai_tpu's, in float32 and in bf16.
 """
 import csv
+import json
 import os
 
 import numpy as np
@@ -255,13 +256,32 @@ def test_batched_driver_equals_per_image(tmp_path, params_path):
     ["--shard_images"], ["--profile_dir", "trace"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(tmp_path, params_path, flag):
+    """Both flags, which raised naming ROADMAP item A14, now run:
+    --shard_images without a process group is the plain run, and
+    --profile_dir (through main) writes a Chrome trace of the run; either
+    way the CSV is the plain run's, runtime rows aside."""
+    common = ["--model", "TINY_R", "--synthetic", "1", "--image_count", "1",
+              "--params_path", params_path]
+    TD.main(common + ["--output_dir", str(tmp_path / "plain")],
+            device="cpu")
+    if flag[0] == "--profile_dir":
+        flag = [flag[0], str(tmp_path / flag[1])]
     args = TD.build_parser().parse_args(
-        ["--model", "TINY_R", "--synthetic", "1", "--image_count", "1",
-         "--params_path", params_path, "--output_dir", str(tmp_path),
-         *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A"):
-        TD.evaluate_perturbation(args, device="cpu")
-    assert not os.listdir(tmp_path)
+        common + ["--output_dir", str(tmp_path / "flag"), *flag])
+    TD.main(common + ["--output_dir", str(tmp_path / "flag"), *flag],
+            device="cpu")
+    rows = [_read_csv(tmp_path / d / "TINY_R" / "ig_1_images.csv")
+            for d in ("plain", "flag")]
+    assert ([r for r in rows[0] if r[0] not in RUNTIME_ROWS]
+            == [r for r in rows[1] if r[0] not in RUNTIME_ROWS])
+    assert len(rows[0]) == 12
+    if flag[0] == "--profile_dir":
+        assert os.listdir(flag[1]) == ["TINY_R_ig_p0.trace.json"]
+        with open(TD.trace_path(args)) as f:
+            events = json.load(f)["traceEvents"]
+        # CPU events of the bundle's build and of the battery's forwards
+        names = {e.get("name") for e in events}
+        assert "aten::conv2d" in names and len(events) > 100
 
 
 def test_unported_model_and_method_raise(tmp_path, monkeypatch):

@@ -37,7 +37,7 @@ for m in ("runners.evaluate_perturbation", "ops.resize", "methods.guided",
           "methods.clip_explain", "methods.clip_surgery",
           "methods.clip_m2ib", "models.vgg", "models.inception",
           "models.convnext", "models.swin", "models.pvt", "models.maxvit",
-          "convert.torch_import", "convert.cli"):
+          "convert.torch_import", "convert.cli", "parallel.multi_host"):
     assert "xai_tpu_torch." + m in names, (m, names)
 # the native segmenter compiles the port's own copy of its source
 import xai_tpu_torch.native as native

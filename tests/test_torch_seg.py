@@ -211,17 +211,23 @@ def test_per_image_seg_ignores_attr_dtype(tmp_path, params_path):
 
 
 def test_seg_unported_paths_raise(tmp_path, monkeypatch):
-    """--shard_images raises naming A14 and writes nothing; CLIP16, which
-    raised naming A11, now runs (on the driver-sized tiny CLIP;
-    tests/test_torch_clip_drivers.py holds its TXT against xai_tpu's)."""
+    """--shard_images, which raised naming A14, is the plain run without
+    a process group and writes the same TXT
+    (tests/test_torch_multi_process.py runs it over two processes);
+    CLIP16, which raised naming A11, now runs (on the driver-sized tiny
+    CLIP; tests/test_torch_clip_drivers.py holds its TXT against
+    xai_tpu's)."""
     from test_torch_clip import CLIP_DRIVER
     from xai_tpu_torch.models import clip as tclip
 
     base = ["--synthetic", "1", "--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A14"):
-        TD.evaluate_imagenet_seg(TD.build_parser().parse_args(
-            ["--model", "TINY_R", "--shard_images", *base]), device="cpu")
-    assert not os.listdir(tmp_path)
+    txts = []
+    for shard in ([], ["--shard_images"]):
+        scores = TD.evaluate_imagenet_seg(TD.build_parser().parse_args(
+            ["--model", "TINY_R", *shard, *base]), device="cpu")
+        with open(tmp_path / "TINY_R" / "ig_0_images") as f:
+            txts.append((scores, f.read()))
+    assert txts[0] == txts[1]
     monkeypatch.setitem(tclip.CONFIGS, "clip_vit_b16",
                         tclip.CLIPConfig(**CLIP_DRIVER))
     scores = TD.evaluate_imagenet_seg(TD.build_parser().parse_args(

@@ -336,12 +336,37 @@ def test_sweep_resumes_and_records_unported_rows(tmp_path, monkeypatch):
 
 
 def test_sweep_refuses_many_processes(tmp_path, monkeypatch):
+    """A multi-process sweep, which raised naming ROADMAP item A14, now
+    stripes its runs as xai_tpu does: process r of n takes
+    ``jobs[r::n]``, into the one manifest (the group stood in for here;
+    tests/test_torch_multi_process.py runs two real processes)."""
+    args = TW.build_parser().parse_args(
+        ["--drivers", "pert,sanity", "--models", "TINY_R", "--methods",
+         "grad,ig,gc", "--output_dir", str(tmp_path)])
+    jobs = TW.sweep_jobs(args)
+    assert len(jobs) == 6
+    ran = []
+    real = TW._driver_entry
+
+    def entry(driver):
+        def evaluate(sub, device=None):
+            ran.append((driver, sub.model, sub.attr_func))
+            return {"MAS_ins": 0.5}
+        return real(driver)[0], evaluate
+
+    monkeypatch.setattr(TW, "_driver_entry", entry)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        TW.run_sweep(TW.build_parser().parse_args(
-            ["--models", "TINY_R", "--output_dir", str(tmp_path)]))
-    assert not os.listdir(tmp_path)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 3)
+    for rank in (1, 2):
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda r=rank: r)
+        ran.clear()
+        records = TW.run_sweep(args)
+        assert ran == jobs[rank::3]
+        assert [(r["driver"], r["model"], r["attr_func"]) for r in records
+                if r["status"] == "ok"] == jobs[rank::3]
+    assert ([(r["driver"], r["attr_func"])
+             for r in _records(tmp_path / "sweep_manifest.jsonl")]
+            == [(d, a) for d, _, a in jobs[1::3] + jobs[2::3]])
 
 
 # --- the blur at MDA's wider kernels ---

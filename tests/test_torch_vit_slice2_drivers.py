@@ -123,10 +123,14 @@ def test_imagenet_seg_eval_txt_matches_xai_tpu(tmp_path, monkeypatch,
 
 
 def test_imagenet_seg_eval_refuses_shard_images(tmp_path, params_path):
-    from xai_tpu_torch.runners import imagenet_seg_eval as TE
-
-    args = TE.build_parser().parse_args(
-        ["--model", "TINY_VIT", "--synthetic", "1", "--shard_images",
-         "--params_path", params_path, "--output_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A14"):
-        TE.run(args, device="cpu")
+    """--shard_images, which raised naming ROADMAP item A14, is the plain
+    run without a process group: the same scores and the same TXT
+    (tests/test_torch_multi_process.py runs it over two processes)."""
+    out = tmp_path / "runs"
+    out.mkdir()
+    flags = ["--method", "rollout", "--params_path", params_path]
+    plain = _seg_eval(out, "torch", flags)
+    assert _seg_eval(out, "torch", flags + ["--shard_images"]) == plain
+    texts = [(out / d / "TINY_VIT_rollout.txt").read_text()
+             for d in ("torch0", "torch1")]
+    assert texts[0] == texts[1]

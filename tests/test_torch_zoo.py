@@ -314,3 +314,24 @@ def test_init_follows_flaxs_scheme():
                        torch.ones(64))
     assert abs(float(mv["stage0_block0.window_attn.attn.rel_bias_table"]
                      .std()) - 0.02) < 0.01
+
+
+META_FIELDS = ("family", "img_hw", "num_classes", "num_patches",
+               "batch_size", "mean", "std")
+
+
+@pytest.mark.parametrize("name", sorted(JAX_ZOO))
+def test_zoo_meta_matches_xai_tpu(name):
+    """Each zoo name's ModelMeta equals xai_tpu's field by field (AGI
+    reads ``mean`` and ``std``; PVT keeps ImageNet's, as in xai_tpu).
+    xai_tpu's ``make_bundle`` only stores the tree it is handed, so an
+    empty one skips the full-width flax init; the port builds on the meta
+    device."""
+    from xai_tpu import models as JM
+
+    ref = JM.get_bundle(name, params={}).meta
+    with torch.device("meta"):
+        got = get_bundle(name, device="meta").meta
+    assert set(EXTENDED_ZOO) == set(JAX_ZOO)
+    for field in META_FIELDS:
+        assert getattr(got, field) == getattr(ref, field), field

@@ -23,7 +23,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.preprocess import VIT_MEAN, VIT_STD
 from .common import (Conv2dSame, LayerNorm, ModelBundle, ModelMeta,
                      conv_nhwc, init_flax_default)
 
@@ -152,6 +151,5 @@ def make_bundle(arch: str = "pvt_tiny", state: Optional[dict] = None,
     model = init_flax_default(PVT(num_classes=1000, **ARCHS[arch]), seed)
     if state is not None:
         model.load_state_dict(state)
-    meta = ModelMeta(name=arch, family="vit", batch_size=batch_size,
-                     mean=VIT_MEAN, std=VIT_STD)
+    meta = ModelMeta(name=arch, family="vit", batch_size=batch_size)
     return ModelBundle(meta, model.to(device))

@@ -7,8 +7,8 @@ each reveal chunk of a batch is one launch of the reveal kernel
 (``kernels/reveal.py reveal_batch``), ``[B, S, C, H, W]``, straight into
 one forward of ``B*S`` images.  xai_tpu shards the images over a device
 mesh, pads the batch to the mesh and may shard the parameters
-(``mesh``, ``param_spec``); those belong to ROADMAP.md item A14 and are
-not arguments here.
+(``mesh``, ``param_spec``); the port has no in-process mesh (ROADMAP.md,
+"Not queued"), so those are not arguments here.
 """
 from __future__ import annotations
 

@@ -52,16 +52,6 @@ def model_entry(model_name: str):
     return MODEL_TABLE[model_name]
 
 
-def reject_unported(flags) -> None:
-    """Raise for the first given flag whose path is not ported yet, naming
-    the ROADMAP.md item that ports it; ``flags``: (given, flag, item)
-    triples.  No flag is silently ignored."""
-    for given, flag, item in flags:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md item {item})")
-
-
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA.  Raises when CUDA is asked for and absent."""
     device = torch.device("cuda" if device is None else device)

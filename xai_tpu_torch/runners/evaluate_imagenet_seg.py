@@ -12,6 +12,12 @@ xai_tpu's per-image path builds its registry context without the
 attribution dtype, so ``--attr_dtype bf16`` acts only under
 ``--image_batch``; the port keeps that.
 
+``--shard_images`` under a process group (``parallel/multi_host.py
+initialize``): process r takes the images whose dataset index is r
+modulo the process count, the int64 counters and the AP / F1 lists meet
+exactly in ``allgather_obj`` (lists joined in rank order), and only
+process 0 writes the TXT.  Every process returns the global scores.
+
 Run: ``python -m xai_tpu_torch.runners.evaluate_imagenet_seg --model R101
 --attr_func ig --synthetic 2`` (``--dataset_path gtsegs_ijcv.mat`` for the
 real set, which needs h5py and PIL).
@@ -25,18 +31,18 @@ import numpy as np
 
 from ..data.segmentation import ImagenetSegmentation
 from ..metrics.seg import best_threshold, eval_batch
+from ..parallel import multi_host
 from ..registry import get_attribution
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      build_bundle, image_generator, model_entry,
-                     normalize_input, predict_classes, reject_unported,
-                     resolve_device)
+                     normalize_input, predict_classes, resolve_device)
 
 
 class SegTotals:
     """The seg drivers' accumulators: int64 pixel counts, per-image AP and
-    F1.  ``best``: each image at its best-IoU threshold
-    (evaluateImageNetSeg.py:331-360); else at ``thr``, or at the map's
-    mean where ``thr`` is None."""
+    F1, and the images a driver skipped.  ``best``: each image at its
+    best-IoU threshold (evaluateImageNetSeg.py:331-360); else at ``thr``,
+    or at the map's mean where ``thr`` is None."""
 
     def __init__(self, best: bool, thr=None):
         self.best = best
@@ -46,6 +52,7 @@ class SegTotals:
         self.correct = np.int64(0)
         self.label = np.int64(0)
         self.ap, self.f1 = [], []
+        self.skipped = 0
 
     def add(self, sal, gt_mask) -> None:
         if self.best:
@@ -61,6 +68,32 @@ class SegTotals:
         self.union += union.astype(np.int64)
         self.ap.append(ap)
         self.f1.append(f1)
+
+    def gather(self) -> None:
+        """Every process's accumulators, under a process group: the
+        counters summed exactly and the AP / F1 lists joined in rank
+        order (``multi_host.allgather_obj``)."""
+        parts = multi_host.allgather_obj({
+            "inter": self.inter, "union": self.union,
+            "correct": int(self.correct), "label": int(self.label),
+            "ap": self.ap, "f1": self.f1, "skipped": self.skipped})
+        self.inter = np.sum([p["inter"] for p in parts],
+                            axis=0).astype(np.int64)
+        self.union = np.sum([p["union"] for p in parts],
+                            axis=0).astype(np.int64)
+        self.correct = np.int64(sum(p["correct"] for p in parts))
+        self.label = np.int64(sum(p["label"] for p in parts))
+        self.ap = [v for p in parts for v in p["ap"]]
+        self.f1 = [v for p in parts for v in p["f1"]]
+        self.skipped = sum(p["skipped"] for p in parts)
+
+    def finish(self, shard: bool, folder: str, name: str) -> dict:
+        """Write the TXT ``folder/name`` (under ``shard``, on process 0
+        only); returns the scores."""
+        if not shard or multi_host.process_index() == 0:
+            os.makedirs(folder, exist_ok=True)
+            return self.write(os.path.join(folder, name))
+        return self.scores()
 
     def scores(self) -> dict:
         return {
@@ -94,7 +127,6 @@ def _flush(bundle, family, buf, totals, args) -> None:
 
 def evaluate_imagenet_seg(args, device=None) -> dict:
     """Run the driver; ``device`` defaults to ``cuda:<--cuda_num>``."""
-    reject_unported([(args.shard_images, "--shard_images", "A14")])
     device = resolve_device(device or f"cuda:{args.cuda_num}")
     family, _ = model_entry(args.model)
     bundle = build_bundle(args.model, args.params_path, device=device)
@@ -104,9 +136,13 @@ def evaluate_imagenet_seg(args, device=None) -> dict:
     # MDA_dense: the best-IoU threshold instead of the mean
     totals = SegTotals(best=args.attr_func == "MDA_dense")
     buf = []
+    shard = args.shard_images and multi_host.process_count() > 1
+    pidx, pcount = multi_host.process_index(), multi_host.process_count()
     for i, item in enumerate(ds):
         if args.image_count and i >= args.image_count:
             break
+        if shard and i % pcount != pidx:
+            continue
         x = normalize_input(item.trans_img, family, device)
         p = {"x": x, "trans_img": item.trans_img, "gt_mask": item.gt_mask,
              "target": predict_classes(bundle, x[None])[0],
@@ -128,10 +164,10 @@ def evaluate_imagenet_seg(args, device=None) -> dict:
     if buf:
         _flush(bundle, family, buf, totals, args)
 
-    folder = os.path.join(args.output_dir, args.model)
-    os.makedirs(folder, exist_ok=True)
-    return totals.write(os.path.join(
-        folder, f"{args.attr_func}_{args.image_count}_images"))
+    if shard:
+        totals.gather()
+    return totals.finish(shard, os.path.join(args.output_dir, args.model),
+                         f"{args.attr_func}_{args.image_count}_images")
 
 
 def build_parser():
@@ -158,7 +194,11 @@ def build_parser():
                    help="batched attribution of N images (methods with a "
                         "batched implementation)")
     p.add_argument("--shard_images", action="store_true",
-                   help="not ported yet (raises)")
+                   help="under a process group (parallel/multi_host.py): "
+                        "stripe the dataset over processes and gather the "
+                        "pixAcc / IoU / AP / F1 accumulators exactly, so "
+                        "that process 0 writes the TXT of a "
+                        "single-process run")
     return p
 
 

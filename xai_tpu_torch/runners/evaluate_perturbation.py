@@ -31,6 +31,17 @@ CLIP names take it (their scoring forwards), as in xai_tpu.  ``--save_maps`` wri
 ``<output_dir>/<model>_<attr_func>_maps.h5`` (``data/voc.py
 ExplanationsHDF5``; it needs ``h5py``).
 
+``--shard_images`` under a process group (``parallel/multi_host.py
+initialize``): every process walks the whole stream, its gates and the
+class quota, and keeps the same images; the kept images are striped over
+the processes by kept rank, each attributes and scores its own, the
+score sums and attribution seconds meet in ``allreduce_sums``, and only
+process 0 writes the CSV.  Every process returns the global means.
+``--profile_dir D`` (through :func:`main`) wraps the whole run, the
+bundle's build included, in ``torch.profiler`` (CPU, and CUDA on a card)
+and writes the Chrome trace ``D/<model>_<attr_func>_p<process
+index>.trace.json``.
+
 Run: ``python -m xai_tpu_torch.runners.evaluate_perturbation --model R101
 --attr_func ig --synthetic 2 --image_count 2`` (or any other CNN name:
 lime, gig, agi, gc, gbp, ggc, gs, fa, occ, shap, rise, xrai; or
@@ -54,12 +65,13 @@ from ..data.classmaps import load_correct_mask
 from ..data.imagenet import ImageNetValStream
 from ..data.voc import ExplanationsHDF5, require_h5py
 from ..metrics.curves import run_battery
+from ..parallel import multi_host
 from ..parallel.sharded_battery import sharded_battery_scores
 from ..registry import get_attribution
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      build_bundle, default_blur, image_gates,
                      image_generator, model_entry, normalize_input,
-                     reject_unported, resolve_device, write_result_csv)
+                     resolve_device, write_result_csv)
 
 
 class _MapStore:
@@ -127,8 +139,6 @@ def _flush_batch(bundle, family, pend, blur, result, args,
 
 def evaluate_perturbation(args, device=None) -> dict:
     """Run the driver; ``device`` defaults to ``cuda:<--cuda_num>``."""
-    reject_unported([(args.shard_images, "--shard_images", "A14"),
-                     (bool(args.profile_dir), "--profile_dir", "A14")])
     if args.save_maps:
         require_h5py("--save_maps")
     device = resolve_device(device or f"cuda:{args.cuda_num}")
@@ -155,6 +165,9 @@ def evaluate_perturbation(args, device=None) -> dict:
     maps = _MapStore(args) if args.save_maps else None
     t0 = time.time()
     gating = not (args.synthetic or args.skip_gates)
+    shard = args.shard_images and multi_host.process_count() > 1
+    pidx, pcount = multi_host.process_index(), multi_host.process_count()
+    kept_rank = 0
 
     for item in stream:
         if images_used == args.image_count:
@@ -169,10 +182,16 @@ def evaluate_perturbation(args, device=None) -> dict:
         if classes_used[target] == images_per_class:
             continue
         classes_used[target] += 1
+        # another process's image still counts toward the shared
+        # denominator and the loop's break
+        mine = not shard or kept_rank % pcount == pidx
+        kept_rank += 1
+        images_used += 1
+        if not mine:
+            continue
         p = {"x": x, "trans_img": item.trans_img, "name": item.name,
              "target": target, "original_pred": original_pred,
              "generator": image_generator(args.seed, item.index, device)}
-        images_used += 1
 
         if args.image_batch > 1:
             batch_buf.append(p)
@@ -197,7 +216,14 @@ def evaluate_perturbation(args, device=None) -> dict:
     total_time = time.time() - t0
     if maps is not None:
         maps.close()
-    if images_used:
+    if shard:
+        # the attribution seconds are summed too: the CSV's Attr Avg
+        # Runtime is seconds of attribution work an image, over all
+        # processes
+        result, attr_time = multi_host.allreduce_sums(result, attr_time)
+    # under --shard_images only process 0 writes: two processes writing
+    # one path can tear it
+    if images_used and (not shard or pidx == 0):
         folder = os.path.join(args.output_dir, args.model)
         write_result_csv(folder, f"{args.attr_func}_{args.image_count}_images",
                          result, images_used, attr_time, total_time)
@@ -223,7 +249,8 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="not ported yet (raises)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "here (through main)")
     p.add_argument("--image_batch", type=int, default=1,
                    help="attribute AND score N images per batch (one "
                         "batched attribution sweep and one batched "
@@ -242,13 +269,37 @@ def build_parser():
                         "random weights; the reference gates assume a "
                         "trained model)")
     p.add_argument("--shard_images", action="store_true",
-                   help="not ported yet (raises)")
+                   help="under a process group (parallel/multi_host.py): "
+                        "stripe the kept images over processes and "
+                        "allreduce the score sums, so that process 0 "
+                        "writes the CSV of a single-process run")
     return p
 
 
-def main(argv=None):
+def trace_path(args) -> str:
+    """Where ``--profile_dir`` puts this process's Chrome trace."""
+    return os.path.join(args.profile_dir, f"{args.model}_{args.attr_func}"
+                        f"_p{multi_host.process_index()}.trace.json")
+
+
+def main(argv=None, device=None):
+    """The command line; ``device`` defaults to ``cuda:<--cuda_num>``.
+    ``--profile_dir`` traces the whole run here, as xai_tpu's ``main``
+    does; :func:`evaluate_perturbation` itself never traces."""
     args, _ = build_parser().parse_known_args(argv)
-    scores = evaluate_perturbation(args)
+    if not args.profile_dir:
+        scores = evaluate_perturbation(args, device)
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        device = resolve_device(device or f"cuda:{args.cuda_num}")
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            scores = evaluate_perturbation(args, device)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(trace_path(args))
     print({k: round(v, 4) for k, v in scores.items()})
 
 

@@ -17,6 +17,12 @@ generator of their own built from ``(--seed, image index)``, so a
 stochastic method draws the same noise for both weight sets, as xai_tpu's
 one key does.
 
+``--shard_images`` under a process group (``parallel/multi_host.py
+initialize``): every process walks the whole stream and its filter, the
+kept images are striped over the processes by kept rank, the similarity
+sums meet in ``allreduce_sums`` and only process 0 writes the CSV (its
+rows then in the sums' sorted key order, as xai_tpu's).
+
 Run: ``python -m xai_tpu_torch.runners.evaluate_sanity --model R101
 --attr_func ig --synthetic 2 --image_count 2`` (or ``--model VIT16
 --attr_func rollout``, ``--model CLIP16 --attr_func eclip``; add
@@ -39,11 +45,11 @@ from ..data.imagenet import ImageNetValStream
 from ..metrics.sanity import evaluate as sanity_evaluate
 from ..models.clip import attach_text_table
 from ..models.common import ModelBundle
+from ..parallel import multi_host
 from ..registry import get_attribution
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      build_bundle, image_generator, model_entry,
-                     normalize_input, predict_classes, reject_unported,
-                     resolve_device)
+                     normalize_input, predict_classes, resolve_device)
 
 def _clip_rule(name: str, ndim: int):
     """xai_tpu's CLIP rule on its leaf names: "normal" for a 2-D
@@ -138,7 +144,6 @@ def _flush_sanity(bundle, rand_bundle, family, buf, args, totals, device):
 
 def evaluate_sanity(args, device=None) -> dict:
     """Run the driver; ``device`` defaults to ``cuda:<--cuda_num>``."""
-    reject_unported([(args.shard_images, "--shard_images", "A14")])
     device = resolve_device(device or f"cuda:{args.cuda_num}")
     family, _ = model_entry(args.model)
     bundle = build_bundle(args.model, args.params_path, device=device)
@@ -155,14 +160,23 @@ def evaluate_sanity(args, device=None) -> dict:
     images_used = 0
     buf = []
     t0 = time.time()
+    shard = args.shard_images and multi_host.process_count() > 1
+    pidx, pcount = multi_host.process_index(), multi_host.process_count()
+    kept_rank = 0
     for item in stream:
         if images_used == args.image_count:
             break
         if correct is not None and correct[item.index] == 0:
             continue
+        # another process's image still counts toward the shared
+        # denominator and the loop's break
+        mine = not shard or kept_rank % pcount == pidx
+        kept_rank += 1
+        images_used += 1
+        if not mine:
+            continue
         p = {"x": normalize_input(item.trans_img, family, device),
              "trans_img": item.trans_img, "index": item.index}
-        images_used += 1
         if args.image_batch > 1:
             buf.append(p)
             if len(buf) == args.image_batch:
@@ -185,7 +199,10 @@ def evaluate_sanity(args, device=None) -> dict:
         _flush_sanity(bundle, rand_bundle, family, buf, args, totals, device)
 
     total_time = time.time() - t0
-    if images_used:
+    if shard:
+        totals, _ = multi_host.allreduce_sums(totals)
+    # under --shard_images only process 0 writes
+    if images_used and (not shard or pidx == 0):
         folder = os.path.join(args.output_dir, args.model)
         os.makedirs(folder, exist_ok=True)
         fn = os.path.join(folder,
@@ -221,7 +238,10 @@ def build_parser():
                    help="attribution sweep dtype (bf16 runs the sweeps on "
                         "a bf16 copy of each model)")
     p.add_argument("--shard_images", action="store_true",
-                   help="not ported yet (raises)")
+                   help="under a process group (parallel/multi_host.py): "
+                        "stripe the kept images over processes and "
+                        "allreduce the SSIM / SPR / HOG sums, so that "
+                        "process 0 writes the CSV of a single-process run")
     return p
 
 

@@ -10,7 +10,10 @@ grid, ``--shap_samples`` permutations), the MDA variants and
 slic segments and ``refine_attribution`` of rollout), with ``--thr`` and
 ``--acc_cutoff``.  ``Calibrate_Best_Possible`` and ``MDA_dense`` take
 each image's best-IoU threshold.  Image i draws from
-``image_generator(--seed, i)``.
+``image_generator(--seed, i)``.  ``--shard_images`` stripes the dataset
+index over the processes of a process group, as the seg driver does
+(the ``--acc_cutoff`` skip comes after the stripe), and gathers the
+accumulators and the skip count exactly; only process 0 writes.
 
 Run: ``python -m xai_tpu_torch.runners.imagenet_seg_eval --model VIT16
 --method rollout --synthetic 2`` (``--dataset_path gtsegs_ijcv.mat`` for
@@ -19,15 +22,15 @@ the real set, which needs h5py and PIL).
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 
 from ..data.segmentation import ImagenetSegmentation
+from ..parallel import multi_host
 from ..registry import get_attribution
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      build_bundle, image_generator, model_entry,
-                     normalize_input, reject_unported, resolve_device)
+                     normalize_input, resolve_device)
 from .evaluate_imagenet_seg import SegTotals
 
 # the methods that go image by image whatever --image_batch says
@@ -77,7 +80,6 @@ def _flush(args, bundle, family, buf, totals, dtype) -> None:
 
 def run(args, device=None) -> dict:
     """Run the driver; ``device`` defaults to ``cuda:<--cuda_num>``."""
-    reject_unported([(args.shard_images, "--shard_images", "A14")])
     device = resolve_device(device or f"cuda:{args.cuda_num}")
     family, _ = model_entry(args.model)
     bundle = build_bundle(args.model, args.params_path, device=device)
@@ -89,17 +91,20 @@ def run(args, device=None) -> dict:
     totals = SegTotals(
         best=args.method in ("Calibrate_Best_Possible", "MDA_dense"),
         thr=args.thr if args.thr > 0 else None)
-    skipped = 0
     buf = []
+    shard = args.shard_images and multi_host.process_count() > 1
+    pidx, pcount = multi_host.process_index(), multi_host.process_count()
     for i, item in enumerate(ds):
         if args.image_count and i >= args.image_count:
             break
+        if shard and i % pcount != pidx:
+            continue
         x = normalize_input(item.trans_img, family, device)
         probs = bundle.probs(x.permute(2, 0, 1)[None].contiguous())[0]
         target = int(probs.argmax())
         # low-confidence skip (imagenet_seg_eval.py:234: percent scale)
         if float(probs[target]) * 100 < args.acc_cutoff:
-            skipped += 1
+            totals.skipped += 1
             continue
         p = {"x": x, "trans_img": item.trans_img, "gt_mask": item.gt_mask,
              "target": target,
@@ -110,12 +115,13 @@ def run(args, device=None) -> dict:
     if buf:
         _flush(args, bundle, family, buf, totals, dtype)
 
-    if skipped:
-        print(f"skipped {skipped} images below --acc_cutoff "
+    if shard:
+        totals.gather()
+    if totals.skipped:
+        print(f"skipped {totals.skipped} images below --acc_cutoff "
               f"{args.acc_cutoff}%")
-    os.makedirs(args.output_dir, exist_ok=True)
-    return totals.write(os.path.join(args.output_dir,
-                                     f"{args.model}_{args.method}.txt"))
+    return totals.finish(shard, args.output_dir,
+                         f"{args.model}_{args.method}.txt")
 
 
 def build_parser():
@@ -150,7 +156,9 @@ def build_parser():
                    help="batched attribution of N images (methods with a "
                         "batched implementation)")
     p.add_argument("--shard_images", action="store_true",
-                   help="not ported yet (raises)")
+                   help="under a process group (parallel/multi_host.py): "
+                        "stripe images over processes and gather the "
+                        "counters exactly; only process 0 writes the TXT")
     return p
 
 

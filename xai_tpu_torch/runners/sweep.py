@@ -3,9 +3,10 @@ resumable manifest (per-run result streaming replaces the reference's
 re-run-the-shell-line crash recovery).
 
 Counterpart of ``xai_tpu/runners/sweep.py`` with the same tables, flags
-and ``sweep_manifest.jsonl``.  xai_tpu stripes the runs over its
-processes; the port runs as one process until ROADMAP.md item A14, and a
-multi-process run raises.  A run that fails is recorded with ``status:
+and ``sweep_manifest.jsonl``.  Under a process group
+(``parallel/multi_host.py initialize``) process r takes runs r, r + n,
+r + 2n, ... of the n processes, into one shared output directory and
+manifest, as xai_tpu does.  A run that fails is recorded with ``status:
 error`` and the sweep goes on, as in xai_tpu.
 
 Tables mirror XAI_Survey/evaluations/allPertTests.txt (84 rows),
@@ -20,7 +21,7 @@ import json
 import os
 import time
 
-import torch
+from ..parallel import multi_host
 
 _CNN = ["grad", "inp_x_grad", "ig", "lig", "idg", "gig", "agi", "sg",
         "xrai", "gc", "gbp", "ggc", "gs", "lime", "fa", "occ"]
@@ -123,15 +124,9 @@ def _done(manifest_path: str) -> set:
 def run_sweep(args, device=None) -> list:
     """Run every selected run not yet in the manifest, appending one
     record a run; returns the records written.  ``device`` goes to each
-    driver (default: its ``cuda:<--cuda_num>``).  xai_tpu stripes the
-    runs over its processes; here a multi-process run raises until A14
-    ports the striping."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process sweeps are not ported yet (ROADMAP.md item A14)")
-    jobs = sweep_jobs(args)
+    driver (default: its ``cuda:<--cuda_num>``).  Under a process group
+    each process takes every n-th run, from its rank on."""
+    jobs = multi_host.my_shard(sweep_jobs(args))
     manifest_path = os.path.join(args.output_dir, "sweep_manifest.jsonl")
     os.makedirs(args.output_dir, exist_ok=True)
     done = _done(manifest_path)
