@@ -172,7 +172,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Chrome trace must hold device kernels, blur and reveal among them,
    and its CSV must be within 1e-4 of the same run unprofiled; prints
    the top kernels by summed device time, the busy share of the traced
-   window and of the kernels' span, and a {"profiles": [...]} line.
+   window and of the kernels' span, and a {"profiles": [...]} line;
+9. the in-process mesh (ROADMAP A15), after phase 4's paths and on its
+   files, at full width: its meshes are the visible cards in turn when
+   there are two or more, else a virtual mesh that repeats cuda:0 (the
+   phase prints which, and torch.cuda.device_count()).  On two or more
+   cards, each kernel launched on cuda:1 must leave the current device
+   as it was; on one card the line says this could not be checked.
+   VIT16 with seeded random weights: the tensor-parallel model over two
+   ranks at B=4, logits within 1e-4 of max |logit| of the whole model;
+   the eval step on a 2x2 mesh with vit_param_spec at B=8, both means
+   within 1e-5 of the one-device step; one float32 MAS-calibration train
+   step at B=4 on the 2x2 mesh, from a bias that folds |.| inside the
+   attributions' channel sums (from init_fn's calibration the scale's
+   gradient is a rounding residue that Adam's first step magnifies),
+   loss, scale and bias within 1e-4 of one device and both gradients
+   (Adam's first moment) within 1e-3 of their size; the tensor-parallel
+   battery at B=2 over the 2x2 mesh (blur 2, reveal 30) within 2e-3 of
+   the one-device battery.  R101: the battery at B=6 over a 4x1 mesh,
+   shards 2/2/1/1 (blur 4, reveal 60), within 2e-3 of one device, and
+   evaluate_perturbation --attr_func ig --image_batch 4 --synthetic 4
+   --image_count 4000 with its battery_mesh standing for that mesh
+   (blur 4, reveal 60), its CSV within 2e-3
+   of phase 4's one-card file.  Prints each warm step's time with CUDA
+   events, mesh against one device (on a virtual mesh: overhead, not
+   scaling).  Every earlier phase runs the driver's own mesh, which on a
+   one-card host is 1x1: the whole batch on the card, as before.
 
 Prints the card line, a {"kernels": [...]} JSON line, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
@@ -684,6 +709,10 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     # which blur too) and 15 reveal launches; LIME segments its image(s)
     # in one quickshift launch
     flushes = scored // batch
+    # a flush runs one battery a data shard of the driver's mesh (one card:
+    # one shard)
+    batteries = flushes * (ep.battery_mesh(dev, batch).shape["data"]
+                           if batch > 1 else 1)
     if want is not None:
         want = want()
         if launches != want:
@@ -692,13 +721,13 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     if batch == 1:
         ok_blur = launches["blur_planes"] >= scored
     else:
-        ok_blur = launches["blur_planes"] == flushes
-    want_reveal = (REVEAL_PER_BATTERY * flushes if want is None
+        ok_blur = launches["blur_planes"] == batteries
+    want_reveal = (REVEAL_PER_BATTERY * batteries if want is None
                    else want["reveal_batch"])
     want_qs = flushes if attr_func == "lime" else 0
     if not ok_blur:
         fail(f"blur kernel launched {launches['blur_planes']} times on the "
-             f"{label} main path ({flushes} batteries)")
+             f"{label} main path ({batteries} batteries)")
     if launches["reveal_batch"] != want_reveal:
         fail(f"reveal kernel launched {launches['reveal_batch']} times on "
              f"the {label} main path, expected {want_reveal}")
@@ -3828,6 +3857,267 @@ def check_profiles(torch, dev, out_dir, card) -> dict:
     return by_path
 
 
+# the mesh phase's bounds: the tensor-parallel logits relative to max
+# |logit|; the eval step's two means; the train step's loss and
+# calibration, and its gradients relative to their size; batteries and the
+# driver's CSV (tests/test_torch_mesh.py)
+MESH_LOGIT_TOL = 1e-4
+MESH_EVAL_TOL = 1e-5
+MESH_TRAIN_TOL = 1e-4
+MESH_GRAD_TOL = 1e-3
+MESH_SCORE_TOL = 2e-3
+
+
+def mesh_devices(torch, dev, n: int) -> list:
+    """``n`` mesh entries: the visible cards in turn where there are two
+    or more, else ``dev`` repeated (a virtual mesh)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return [dev] * n
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def _max_score_err(got: list, want: list) -> float:
+    if [list(g) for g in got] != [list(w) for w in want]:
+        return math.inf
+    return max(abs(g[k] - w[k]) for g, w in zip(got, want) for k in w)
+
+
+def check_device_guard(torch) -> None:
+    """On a host of two or more cards, each kernel launched on card 1 must
+    leave the caller's current device as it was (the wrappers' device
+    guard around the C entries' cudaSetDevice)."""
+    if torch.cuda.device_count() < 2:
+        print("device guard: one card visible, could not check that a "
+              "launch on another card keeps the current device")
+        return
+    from xai_tpu_torch.kernels.blur import blur_planes
+    from xai_tpu_torch.kernels.quickshift import quickshift_parents
+    from xai_tpu_torch.kernels.reveal import reveal_batch
+
+    d1 = torch.device("cuda", 1)
+    g = torch.Generator(d1).manual_seed(0)
+    x = torch.rand(2, 3, 32, 32, device=d1, generator=g)
+    flip = torch.randint(1, 33, (2, 32, 32), device=d1, generator=g,
+                         dtype=torch.int32)
+    steps = torch.arange(5, dtype=torch.int32, device=d1)
+    launches = {
+        "blur_planes": lambda: blur_planes(x[0]),
+        "reveal_batch": lambda: reveal_batch(x, x * 0, flip, steps),
+        "quickshift_parents": lambda: quickshift_parents(
+            x.permute(0, 2, 3, 1).contiguous(), 0.5 / 36, 36.0, 0.5, w=6,
+            wd=4)}
+    before = torch.cuda.current_device()
+    for name, launch in launches.items():
+        launch()
+        torch.cuda.synchronize(d1)
+        if torch.cuda.current_device() != before:
+            fail(f"device guard: {name} on cuda:1 left the current device "
+                 f"{torch.cuda.current_device()}, was {before}")
+    print(f"device guard: launches on cuda:1 kept the current device "
+          f"cuda:{before}")
+
+
+def check_mesh(torch, dev, out_dir, card) -> dict:
+    """Phase 9: the in-process mesh at full width, on the visible cards
+    when there are two or more, else a virtual mesh on ``dev``.  VIT16:
+    the tensor-parallel model over two ranks against the whole one, the
+    eval step on a 2x2 mesh, one train step on it, the tensor-parallel
+    battery over two data rows; R101: the battery at B=6 over a 4x1 mesh
+    and the --image_batch 4 driver over it, each against its one-device
+    run.  Times each warm step, mesh against one device.  Returns the
+    launches by path."""
+    import numpy as np
+
+    from xai_tpu_torch.parallel.mesh import (TensorParallelViT, make_mesh,
+                                             vit_param_spec)
+    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
+    from xai_tpu_torch.methods.mas_calibrate import ADAM_B1
+    from xai_tpu_torch.parallel.sharded_eval import (_ig_attr,
+                                                     make_sharded_train_step,
+                                                     sharded_eval_step)
+    from xai_tpu_torch.runners import evaluate_perturbation as ep
+    from xai_tpu_torch.runners.common import (build_bundle, default_blur,
+                                              normalize_input)
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    kind = ("the visible cards" if count >= 2
+            else f"a virtual mesh on {dev}: its times are overhead, not "
+                 f"scaling")
+    print(f"mesh phase: torch.cuda.device_count() = {count}; the meshes "
+          f"are {kind}")
+    check_device_guard(torch)
+    one = make_mesh(devices=[dev])
+    mesh22 = make_mesh(4, 2, devices=mesh_devices(torch, dev, 4))
+    mesh41 = make_mesh(4, 1, devices=mesh_devices(torch, dev, 4))
+    by_path, times = {}, {}
+
+    bundle = build_bundle("VIT16", device=dev)
+    module = bundle.module
+    spec = vit_param_spec(module)
+    g = torch.Generator(dev).manual_seed(12)
+    xs = torch.randn(8, 3, 224, 224, device=dev, generator=g)
+    targets = torch.randint(0, 1000, (8,), device=dev, generator=g)
+
+    def tp_logits():
+        tp = TensorParallelViT(module, mesh22.devices[0], spec)
+        with torch.no_grad():
+            return tp(xs[:4]), module(xs[:4])
+    (got, whole), _ = run_path(torch, "mesh_vit16_tp_logits", tp_logits,
+                               NO_LAUNCHES)
+    err = float((got - whole).abs().max() / whole.abs().max())
+    if not err <= MESH_LOGIT_TOL:
+        fail(f"mesh: tensor-parallel VIT16 logits off by {err:.3e} of max "
+             f"|logit|")
+    print(f"mesh: tensor-parallel VIT16 (2 ranks) logits at B=4 within "
+          f"{err:.3e} of max |logit| of the whole model (bound "
+          f"{MESH_LOGIT_TOL})")
+
+    steps = {"mesh": sharded_eval_step(module, mesh22, spec),
+             "one": sharded_eval_step(module, one)}
+    out = {}
+    for name, step in steps.items():
+        for _ in range(2):              # the first call warms up
+            out[name], times[f"eval_{name}"] = _event_s(
+                torch, lambda: step(xs, targets))
+    for k in ("mean_target_prob", "accuracy"):
+        err = abs(float(out["mesh"][k]) - float(out["one"][k]))
+        if not err <= MESH_EVAL_TOL:
+            fail(f"mesh: eval step {k} {float(out['mesh'][k])} on 2x2, "
+                 f"{float(out['one'][k])} on one device")
+    print(f"mesh: eval step at B=8 on 2x2 with the spec: "
+          f"{ {k: float(v) for k, v in out['mesh'].items()} }, one device "
+          f"{ {k: float(v) for k, v in out['one'].items()} } (bound "
+          f"{MESH_EVAL_TOL})")
+
+    # the float32 step, from a calibration where both gradients count: from
+    # init_fn's (bias 0) the min-max leaves the loss invariant to scale but
+    # for its 1e-8, so d loss / d scale is a rounding residue, which
+    # Adam's first step (g / (|g| + 1e-8)) turns into a step of up to lr
+    # either way; and a bias far outside the channel sums of the
+    # attributions (VIT16's random weights give ~1e-3) leaves it invariant
+    # to both.  So the step starts from a bias that folds |.| inside them,
+    # as tests/test_torch_mesh.py's 0.1 does at its widths: minus a third
+    # of the sums' 75th percentile.  Adam's first moment is 0.1 of the
+    # gradient, so the gradient is held too, relative to its size.
+    x4, t4 = xs[:4], targets[:4]
+    sums = _ig_attr(module, x4, t4, 4).sum(1)
+    bias0 = -float(torch.quantile(sums.flatten(), 0.75)) / 3
+    res = {}
+    for name, mesh, sp in (("mesh", mesh22, spec), ("one", one, None)):
+        step, init = make_sharded_train_step(module, mesh, sp)
+        for _ in range(2):              # the first call warms up
+            calib, opt = init()
+            calib["bias"] = torch.full_like(calib["bias"], bias0)
+            (new, opt, loss), times[f"train_{name}"] = _event_s(
+                torch, lambda: step(calib, opt, x4, t4))
+        grads = [float(opt[k].mu) / (1 - ADAM_B1) for k in ("scale", "bias")]
+        res[name] = ([float(loss), float(new["scale"]), float(new["bias"])],
+                     grads)
+    (got, g_got), (want, g_want) = res["mesh"], res["one"]
+    err = max(abs(a - b) for a, b in zip(got, want))
+    # a zero gradient would hold nothing
+    g_err = max(abs(a - b) / abs(b) if b else math.inf
+                for a, b in zip(g_got, g_want))
+    if not (err <= MESH_TRAIN_TOL and g_err <= MESH_GRAD_TOL
+            and all(map(math.isfinite, got + g_got))):
+        fail(f"mesh: float32 train step from bias {bias0:.4e}: (loss, "
+             f"scale, bias) {got} and gradients {g_got} on 2x2, {want} and "
+             f"{g_want} on one device")
+    print(f"mesh: float32 train step at B=4 on 2x2 with the spec from bias "
+          f"{bias0:.4e}: (loss, scale, bias) {got} within {err:.3e} of one "
+          f"device (bound {MESH_TRAIN_TOL}); d loss / d (scale, bias) "
+          f"{g_got} within {g_err:.3e} of its size (bound {MESH_GRAD_TOL})")
+    del res
+
+    sals = np.random.RandomState(9).rand(8, 224, 224).astype(np.float32)
+    x_hwc = xs.permute(0, 2, 3, 1).contiguous()
+    blur = default_blur()
+    battery_want = {1: dict(NO_LAUNCHES, blur_planes=1,
+                            reveal_batch=REVEAL_PER_BATTERY)}
+    for shards in (2, 4):
+        battery_want[shards] = dict(
+            NO_LAUNCHES, blur_planes=shards,
+            reveal_batch=shards * REVEAL_PER_BATTERY)
+    vit = {}
+    for name, mesh, sp, want in (("mesh", mesh22, spec, battery_want[2]),
+                                 ("one", None, None, battery_want[1])):
+        label = f"mesh_vit16_battery_{name}"
+        vit[name], by_path[label] = run_path(
+            torch, label, lambda: sharded_battery_scores(
+                bundle, x_hwc[:2], sals[:2], blur, mesh=mesh,
+                param_spec=sp), want)
+        _, times[f"vit_battery_{name}"] = _event_s(
+            torch, lambda: sharded_battery_scores(
+                bundle, x_hwc[:2], sals[:2], blur, mesh=mesh,
+                param_spec=sp))
+    err = _max_score_err(vit["mesh"], vit["one"])
+    if not err <= MESH_SCORE_TOL:
+        fail(f"mesh: tensor-parallel VIT16 battery {vit['mesh']} against "
+             f"one device {vit['one']}")
+    print(f"mesh: tensor-parallel VIT16 battery at B=2 over 2x2 within "
+          f"{err:.3e} of one device (bound {MESH_SCORE_TOL})")
+    del bundle, module, xs, x_hwc
+
+    r101 = build_bundle("R101", device=dev)
+    imgs = np.random.RandomState(10).rand(6, 224, 224, 3).astype(np.float32)
+    rx = torch.stack([normalize_input(im, "cnn", dev) for im in imgs])
+    rt = [3, 1, 4, 1, 5, 9]
+    res = {}
+    for name, mesh, want in (("mesh", mesh41, battery_want[4]),
+                             ("one", None, battery_want[1])):
+        label = f"mesh_r101_battery_{name}"
+        res[name], by_path[label] = run_path(
+            torch, label, lambda: sharded_battery_scores(
+                r101, rx, sals[:6], blur, targets=rt, mesh=mesh), want)
+        _, times[f"r101_battery_{name}"] = _event_s(
+            torch, lambda: sharded_battery_scores(
+                r101, rx, sals[:6], blur, targets=rt, mesh=mesh))
+    err = _max_score_err(res["mesh"], res["one"])
+    if not err <= MESH_SCORE_TOL:
+        fail(f"mesh: R101 battery over 4x1 {res['mesh']} against one "
+             f"device {res['one']}")
+    print(f"mesh: R101 battery at B=6 over 4x1 (shards 2/2/1/1) within "
+          f"{err:.3e} of one device (bound {MESH_SCORE_TOL})")
+    del r101, rx
+
+    label = "mesh_r101_ig_b4"
+    flags = ["--model", "R101", "--attr_func", "ig", "--image_batch", "4",
+             "--synthetic", "4", "--image_count", "4000", "--output_dir",
+             os.path.join(out_dir, label)]
+    real_mesh, ep.battery_mesh = ep.battery_mesh, lambda d, b: mesh41
+    try:
+        _, by_path[label] = run_path(
+            torch, label, lambda: ep.evaluate_perturbation(
+                ep.build_parser().parse_args(flags), device=dev),
+            battery_want[4])
+    finally:
+        ep.battery_mesh = real_mesh
+    got = read_result(os.path.join(out_dir, label, "R101",
+                                   "ig_4000_images.csv"))
+    want = read_result(os.path.join(out_dir, "ig_b4", "R101",
+                                    "ig_4000_images.csv"))
+    err = max((abs(got[k] - want[k]) for k in want), default=math.inf) \
+        if sorted(got) == sorted(want) else math.inf
+    if not err <= MESH_SCORE_TOL:
+        fail(f"mesh: the driver's CSV over 4x1 {got} against phase 4's "
+             f"one-card {want}")
+    print(f"mesh: evaluate_perturbation R101 ig --image_batch 4 over 4x1 "
+          f"within {err:.3e} of phase 4's one-card CSV (bound "
+          f"{MESH_SCORE_TOL})")
+    print(f"mesh phase timing, warm, CUDA events, ms (mesh / one device; "
+          f"{'real cards' if count >= 2 else 'virtual: overhead, not scaling'}"
+          f"): "
+          + ", ".join(f"{k} {times[k + '_mesh'] * 1e3:.3f} / "
+                      f"{times[k + '_one'] * 1e3:.3f}"
+                      for k in ("eval", "train", "vit_battery",
+                                "r101_battery"))
+          + f" on {card}")
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -3894,6 +4184,7 @@ def main() -> None:
         by_path.update(single_process_references(torch, dev, out_dir))
         by_path.update(check_two_processes(torch, dev, out_dir, by_path))
         by_path.update(check_profiles(torch, dev, out_dir, card))
+        by_path.update(check_mesh(torch, dev, out_dir, card))
     check_small_reference(torch, dev)
     check_batch_reference(torch, dev)
     check_a8_reference(torch, dev)

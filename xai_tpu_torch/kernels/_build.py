@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -31,6 +32,10 @@ BUILD_DIR = CSRC / "build"
 KERNELS = ("blur", "reveal", "quickshift")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a mesh battery launches from one host thread a data shard
+# (parallel/sharded_battery.py): the first loads and the launch counters
+# are shared between them
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -88,11 +93,19 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, dict]:
 def load(name: str) -> ctypes.CDLL:
     """Load the library for ``csrc/<name>.cu``, building it if needed.
     Each wrapper loads its library once and keeps it."""
-    build([name])
+    with _LOCK:
+        build([name])
     lib = ctypes.CDLL(str(lib_path(name)))
     lib.xai_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xai_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def count(wrapper, launches: int = 1) -> None:
+    """Add ``launches`` to ``wrapper.launches``, a kernel wrapper's count
+    of its launches, safely from any thread."""
+    with _LOCK:
+        wrapper.launches += launches
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

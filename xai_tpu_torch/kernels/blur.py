@@ -103,20 +103,24 @@ def blur_planes(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
         return out
     lib, fused, wide = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if klen <= MAX_FUSED_KLEN:
-        col, row = _factors(klen, float(nsig))     # host taps, by value
-        err = fused(x.data_ptr(), out.data_ptr(), col.ctypes.data,
-                    row.ctypes.data, n, h, w, klen, x.device.index, stream)
-        launched = 1
-    else:
-        col, row = _device_factors(klen, float(nsig), x.device)
-        mid = torch.empty_like(x)
-        err = wide(x.data_ptr(), mid.data_ptr(), out.data_ptr(),
-                   col.data_ptr(), row.data_ptr(), n, h, w, klen,
-                   x.device.index, stream)
-        launched = 2
+    # the guard gives the caller back its current device: the C entry
+    # sets x's (cudaSetDevice)
+    with torch.cuda.device(x.device):
+        if klen <= MAX_FUSED_KLEN:
+            col, row = _factors(klen, float(nsig))     # host taps, by value
+            err = fused(x.data_ptr(), out.data_ptr(), col.ctypes.data,
+                        row.ctypes.data, n, h, w, klen, x.device.index,
+                        stream)
+            launched = 1
+        else:
+            col, row = _device_factors(klen, float(nsig), x.device)
+            mid = torch.empty_like(x)
+            err = wide(x.data_ptr(), mid.data_ptr(), out.data_ptr(),
+                       col.data_ptr(), row.data_ptr(), n, h, w, klen,
+                       x.device.index, stream)
+            launched = 2
     _build.check(lib, err, "blur_planes")
-    blur_planes.launches += launched
+    _build.count(blur_planes, launched)
     return out
 
 

@@ -79,11 +79,14 @@ def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
     if out.numel() == 0:
         return out, dens
     lib, fn = _entry()
-    err = fn(lab.data_ptr(), dens.data_ptr(), out.data_ptr(), b, h, wi, w,
-             wd, inv2s2, max_d2, lab.device.index,
-             torch.cuda.current_stream(lab.device).cuda_stream)
+    # the guard gives the caller back its current device: the C entry
+    # sets lab's (cudaSetDevice)
+    with torch.cuda.device(lab.device):
+        err = fn(lab.data_ptr(), dens.data_ptr(), out.data_ptr(), b, h, wi,
+                 w, wd, inv2s2, max_d2, lab.device.index,
+                 torch.cuda.current_stream(lab.device).cuda_stream)
     _build.check(lib, err, "quickshift_parents")
-    quickshift_parents.launches += 1
+    _build.count(quickshift_parents)
     return out, dens
 
 

@@ -77,12 +77,15 @@ def reveal_batch(start: torch.Tensor, finish: torch.Tensor,
     if out.numel() == 0:
         return out
     lib, fn = _entry()
-    err = fn(start.data_ptr(), finish.data_ptr(), flip.data_ptr(),
-             steps.data_ptr(), out.data_ptr(), b, s, c, h * w,
-             start.device.index,
-             torch.cuda.current_stream(start.device).cuda_stream)
+    # the guard gives the caller back its current device: the C entry
+    # sets start's (cudaSetDevice)
+    with torch.cuda.device(start.device):
+        err = fn(start.data_ptr(), finish.data_ptr(), flip.data_ptr(),
+                 steps.data_ptr(), out.data_ptr(), b, s, c, h * w,
+                 start.device.index,
+                 torch.cuda.current_stream(start.device).cuda_stream)
     _build.check(lib, err, "reveal_batch")
-    reveal_batch.launches += 1
+    _build.count(reveal_batch)
     return out
 
 

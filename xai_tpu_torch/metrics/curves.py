@@ -291,6 +291,35 @@ def assemble_battery_scores(ins_tp, ins_t1, del_tp, del_t1, lerf_tp,
 # the full battery — evaluatePerturbation.run_perturbation equivalent
 # ---------------------------------------------------------------------------
 
+def flip_schedules(saliencies: np.ndarray, step_size: int) -> tuple:
+    """``[B, H, W]`` saliencies -> (descending, ascending) flip steps,
+    each ``[B, H*W]`` int32 (:func:`pixel_flip_steps`, on the host)."""
+    return tuple(np.stack([pixel_flip_steps(s, step_size, descending=d)
+                           for s in saliencies]) for d in (True, False))
+
+
+def battery_curves(apply_fn, blur_fn, x: torch.Tensor, desc: torch.Tensor,
+                   asc: torch.Tensor, n_steps: int, chunk: int,
+                   targets=None) -> torch.Tensor:
+    """The five curves the scores read, ``[5, B, n_steps + 1]`` on ``x``'s
+    device (insertion target prob and top-1, deletion target prob and
+    top-1, LeRF target prob), enqueued and not read.  x: ``[B, C, H,
+    W]``; desc / asc: ``[B, H, W]`` int32 on its device; targets: int64
+    ``[B]`` there, or None for argmax."""
+    ins, dele, lerf, _ = _battery(apply_fn, blur_fn, x, desc, asc, n_steps,
+                                  chunk, targets)
+    return torch.stack([ins[0], ins[1], dele[0], dele[1], lerf[0]])
+
+
+def assemble_scores(curves: np.ndarray, saliencies: np.ndarray,
+                    desc: np.ndarray, n_steps: int) -> list:
+    """One 10-score dict per image from :func:`battery_curves`' host
+    copy ``[5, B, n_steps + 1]``."""
+    return [assemble_battery_scores(*curves[:, i], saliencies[i], desc[i],
+                                    n_steps)
+            for i in range(curves.shape[1])]
+
+
 def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
                    step_size: Optional[int] = None, chunk: int = 45,
                    targets=None) -> list:
@@ -308,22 +337,17 @@ def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
     step_size = step_size or h
     n_steps = (h * w + step_size - 1) // step_size
 
-    desc = np.stack([pixel_flip_steps(s, step_size) for s in saliencies])
-    asc = np.stack([pixel_flip_steps(s, step_size, descending=False)
-                    for s in saliencies])
+    desc, asc = flip_schedules(saliencies, step_size)
     dev = images.device
     x = images.permute(0, 3, 1, 2).contiguous()
     if targets is not None:
         targets = torch.as_tensor(targets, dtype=torch.int64, device=dev)
-    ins, dele, lerf, _ = _battery(
+    curves = battery_curves(
         apply_fn, blur_fn, x, torch.from_numpy(desc.reshape(b, h, w)).to(dev),
         torch.from_numpy(asc.reshape(b, h, w)).to(dev), n_steps, chunk,
         targets)
     # one device -> host copy for the five curves the scores read
-    curves = torch.stack([ins[0], ins[1], dele[0], dele[1],
-                          lerf[0]]).cpu().numpy()
-    return [assemble_battery_scores(*curves[:, i], saliencies[i], desc[i],
-                                    n_steps) for i in range(b)]
+    return assemble_scores(curves.cpu().numpy(), saliencies, desc, n_steps)
 
 
 def run_battery(apply_fn, input_img: torch.Tensor, saliency: np.ndarray,

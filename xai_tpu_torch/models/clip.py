@@ -310,6 +310,14 @@ class CLIPBundle(ModelBundle):
         return CLIPBundle(self.meta, module, self.text_embeddings,
                           self.text_tokens)
 
+    def _copy_to(self, device: torch.device) -> "CLIPBundle":
+        moved = super()._copy_to(device)
+        # the text table goes with the module
+        moved.text_embeddings = self.text_embeddings.to(device)
+        if self.text_tokens is not None:
+            moved.text_tokens = self.text_tokens.to(device)
+        return moved
+
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         te = self.text_embeddings
         emb = self.module.encode_image(x)[:, 0]

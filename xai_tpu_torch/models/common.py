@@ -49,6 +49,7 @@ class ModelBundle:
         self.meta = meta
         self.module = module.eval().requires_grad_(False)
         self._casts = {}
+        self._replicas = {}
         self._guided = None
 
     def _first_tensor(self):
@@ -85,6 +86,20 @@ class ModelBundle:
             self._casts[dtype] = self.with_module(
                 copy.deepcopy(self.module).to(dtype))
         return self._casts[dtype]
+
+    def to(self, device) -> "ModelBundle":
+        """The bundle on ``device``: this one where it already is, else a
+        copy of its module there (a mesh's replica), made once per device
+        and kept on the bundle, as :meth:`cast`'s copies are."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            self._replicas[device] = self._copy_to(device)
+        return self._replicas[device]
+
+    def _copy_to(self, device: torch.device) -> "ModelBundle":
+        return self.with_module(copy.deepcopy(self.module).to(device))
 
     def with_module(self, module: nn.Module) -> "ModelBundle":
         """A bundle of this one's kind and metadata around ``module`` (a

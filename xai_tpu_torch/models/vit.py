@@ -127,6 +127,15 @@ class VisionTransformer(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.depth)]
 
+    def embed(self, x):
+        """``[B, 3, H, W]`` -> the tokens after the positional embedding,
+        ``[B, N, D]``."""
+        # NCHW conv, then [B, D, gh, gw] -> [B, gh*gw, D]: the row-major
+        # token order of xai_tpu's NHWC reshape
+        y = self.patch_embed(x).flatten(2).transpose(1, 2)
+        y = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), y], dim=1)
+        return y + self.pos_embed
+
     def forward(self, x, taps: bool = False, probes: Optional[dict] = None,
                 token_indices: Optional[torch.Tensor] = None):
         """x: ``[B, 3, H, W]``.  ``probes``: optional ``{"attn": per-block
@@ -138,12 +147,7 @@ class VisionTransformer(nn.Module):
         ``[K]``, one set for the whole batch, or ``[B, K]``, one set a row
         (xai_tpu vmaps its ``[K]`` form over the rows); CLS is always
         kept."""
-        b = x.shape[0]
-        # NCHW conv, then [B, D, gh, gw] -> [B, gh*gw, D]: the row-major
-        # token order of xai_tpu's NHWC reshape
-        y = self.patch_embed(x).flatten(2).transpose(1, 2)
-        y = torch.cat([self.cls_token.expand(b, -1, -1), y], dim=1)
-        y = y + self.pos_embed
+        y = self.embed(x)
         if probes is not None and "embed" in probes:
             y = y + probes["embed"]
         patch_embedding = y

@@ -20,10 +20,11 @@ xai_tpu's tables; a CLIP image gets its target's caption, ``clip_extras``)
 -> run_battery (3 reveal passes fed by the reveal kernel) ->
 accumulate -> CSV.  ``--image_batch N`` gathers N kept images and runs
 one batched attribution (``methods/batch.py``) and one batched battery
-(``parallel/sharded_battery.py``) for them; rise and xrai, which have no
-batched form, attribute the batch's images one by one through the
-registry, and a partial last batch goes image by image with its stored
-targets.
+(``parallel/sharded_battery.py``) for them, sharded over
+:func:`battery_mesh` (one card: the whole batch on it); rise and xrai,
+which have no batched form, attribute the batch's images one by one
+through the registry, and a partial last batch goes image by image with
+its stored targets.
 ``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
 model, on both paths for a CNN and on the batched path for a ViT or CLIP;
 image by image, only TIS, VIT_CX, MDA and MDA_dense among the ViT and
@@ -66,6 +67,7 @@ from ..data.imagenet import ImageNetValStream
 from ..data.voc import ExplanationsHDF5, require_h5py
 from ..metrics.curves import run_battery
 from ..parallel import multi_host
+from ..parallel.mesh import Mesh, canonical_device, make_mesh
 from ..parallel.sharded_battery import sharded_battery_scores
 from ..registry import get_attribution
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
@@ -117,10 +119,36 @@ def _score_image(bundle, family, p, blur, result, args, maps=None):
     return scores, attr_dt
 
 
-def _flush_batch(bundle, family, pend, blur, result, args,
+# the fewest images a card's data shard of the batched battery takes: a
+# shard's battery launches as many kernels as a whole batch's, and the
+# host threads launching them contend, so shards of one image are
+# host-bound (R101 at --image_batch 4 ran slower over four H100s than on
+# one; at 8, two images a card, faster: tools/mesh_scaling_probe.py)
+MIN_SHARD_IMAGES = 2
+
+
+def battery_mesh(device, batch: int) -> Mesh:
+    """The mesh of the batched battery, xai_tpu's ``make_mesh(model_axis=1)``
+    (evaluate_perturbation.py:80).  In one process: every visible card,
+    ``device``'s first (it holds the bundle), when a ``batch`` gives each
+    card ``MIN_SHARD_IMAGES`` images.  Else, under a process group of more
+    than one process (so that no two processes share a card), on a CPU
+    device or on a host of one card: ``device`` alone, 1x1."""
+    device = canonical_device(device)
+    cards = [device]
+    if device.type == "cuda" and multi_host.process_count() == 1:
+        cards += [torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())
+                  if i != device.index]
+    if batch < MIN_SHARD_IMAGES * len(cards):
+        cards = cards[:1]
+    return make_mesh(devices=cards)
+
+
+def _flush_batch(bundle, family, pend, blur, result, args, mesh,
                  maps=None) -> float:
-    """Batched attribution and batched battery for a full image batch.
-    Returns the attribution seconds."""
+    """Batched attribution and batched battery for a full image batch, the
+    battery sharded over ``mesh``.  Returns the attribution seconds."""
     sals, attr_dt = batch_attribute(bundle, family, args.attr_func, pend,
                                     ATTR_DTYPES[args.attr_dtype])
     if maps is not None:
@@ -128,7 +156,7 @@ def _flush_batch(bundle, family, pend, blur, result, args,
             maps.write(p, s)
     all_scores = sharded_battery_scores(
         bundle, torch.stack([p["x"] for p in pend]), sals, blur, chunk=45,
-        targets=[p["target"] for p in pend])
+        targets=[p["target"] for p in pend], mesh=mesh)
     for p, scores in zip(pend, all_scores):
         _accumulate(result, scores)
         if args.verbose:
@@ -145,6 +173,8 @@ def evaluate_perturbation(args, device=None) -> dict:
     family, _ = model_entry(args.model)
     bundle = build_bundle(args.model, args.params_path, device=device)
     blur = default_blur()
+    mesh = (battery_mesh(device, args.image_batch)
+            if args.image_batch > 1 else None)
 
     correct = load_correct_mask(args.class_maps_dir, args.model) \
         if args.class_maps_dir else None
@@ -197,7 +227,7 @@ def evaluate_perturbation(args, device=None) -> dict:
             batch_buf.append(p)
             if len(batch_buf) == args.image_batch:
                 attr_time += _flush_batch(bundle, family, batch_buf, blur,
-                                          result, args, maps)
+                                          result, args, mesh, maps)
             continue
 
         scores, attr_dt = _score_image(bundle, family, p, blur, result, args,
