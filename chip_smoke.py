@@ -91,7 +91,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of xai_tpu's EXTENDED_ZOO outside the drivers' table (VGG16, VGG19,
    IV3 at 299 px, CONVNXT, swin_tiny / small / base, pvt_tiny / small /
    med, MAXVIT, VIT8, VIT_tiny, VIT_base, VIT_large) at full width with
-   seeded random weights through the image finder's entry point on 500
+   seeded random weights through the image finder's entry point on 200
    synthetic images at --batch_size 100, against ground truth made from
    the card's own classes, so that its mask must read 1,0,1,0,...; no
    kernel launches on these paths;
@@ -197,10 +197,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of phase 4's one-card file.  Prints each warm step's time with CUDA
    events, mesh against one device (on a virtual mesh: overhead, not
    scaling).  Every earlier phase runs the driver's own mesh, which on a
-   one-card host is 1x1: the whole batch on the card, as before.
+   one-card host is 1x1: the whole batch on the card, as before;
+10. the library entry point (ROADMAP A16): an RGB JPEG of 400x300 and an
+   L-mode PNG written from np.random.RandomState(0); load_and_preprocess
+   on the card must give the JPEG as a normalized [1, 224, 224, 3] input
+   and refuse the PNG with None; then the three walkthroughs at full
+   width with seeded random weights on the JPEG, each through its
+   module's main as `python -m` runs it, in a process of its own:
+   xai_tpu_torch.examples.cnn_example on R50 at 224 px (grad, IG-50,
+   LIG-50, IDG-50, each scored by the battery: blur 4, reveal 60),
+   vit_example on VIT16 with --with_mda (five attention maps, MDA at 196
+   patches from the bidirectional prior: blur 2, reveal 18 for its
+   rescoring) and clip_example on CLIP16 (four maps, no kernel); each
+   must print finite numbers, and its seconds and the card's peak memory
+   are printed beside the card line.  Phase 5 holds each walkthrough's
+   run card vs CPU on small models: TINY_R at 32 px (saliencies 1e-4,
+   battery scores 2e-3), a 5-block test ViT at 32 px (five maps 1e-4, MDA
+   at 16 patches 1e-4 where its picks agree, else a first flipped pick
+   that is a rounding-level tie) and the tiny CLIP (1e-4).
 
-Prints the card line, a {"kernels": [...]} JSON line, and last
-{"ok": true, "device": {...}}.  Imports nothing of JAX or xai_tpu.
+Every phase's seconds are printed as it ends, and all of them in a
+{"phases_s": {...}} line.  Prints the card line, a {"kernels": [...]}
+JSON line, and last {"ok": true, "device": {...}}.  Imports nothing of
+JAX or xai_tpu.
 """
 from __future__ import annotations
 
@@ -2329,6 +2348,58 @@ def first_flipped_pick(bundle, got, want, start, finish, seg, target,
     return r
 
 
+@contextlib.contextmanager
+def spied_mda_searches():
+    """Records each greedy search of ``methods/mda.py`` while the block
+    runs: its start and finish images, segments, picks, seeded skips and
+    the insertion search's normalization and cutoff.  Yields the list."""
+    import numpy as np
+
+    from xai_tpu_torch.methods import mda as M
+
+    searches = []
+    real = M._greedy_search
+
+    def spy(bundle, start, finish, seg_map, *a, **k):
+        out = real(bundle, start, finish, seg_map, *a, **k)
+        searches.append(dict(
+            start=start.float().cpu().numpy(),
+            finish=finish.float().cpu().numpy(),
+            seg=np.asarray(seg_map), picks=list(out[0]),
+            skip=[int(v) for v in k.get("skip") or []],
+            norm=k.get("norm_pair"), cutoff=k.get("cutoff")))
+        return out
+
+    M._greedy_search = spy
+    try:
+        yield searches
+    finally:
+        M._greedy_search = real
+
+
+def first_flipped_search(cpu_bundle, card, cpu, target, label):
+    """The first of one MDA call's searches (insertion, then deletion)
+    whose picks differ card vs CPU, as "<kind> round <r>", or None; each
+    held by the first-flip rule (first_flipped_pick), the insertion search
+    allowed to stop a round apart at a cutoff tie."""
+    if len(card) != len(cpu):
+        fail(f"{label}: {len(card)} vs {len(cpu)} searches card vs CPU")
+    for kind, a, c in zip(("insertion", "deletion"), card, cpu):
+        if a["skip"] != c["skip"]:
+            fail(f"{label}: the {kind} search was seeded with {a['skip']} "
+                 f"vs {c['skip']}")
+        cut = None
+        if c["norm"] is not None and c["cutoff"] is not None:
+            orig, base = c["norm"]
+            cut = base + c["cutoff"] * abs(orig - base)
+        r = first_flipped_pick(cpu_bundle, a["picks"], c["picks"],
+                               c["start"], c["finish"], c["seg"], target,
+                               skip=c["skip"], cutoff_prob=cut)
+        if r is not None:
+            return f"{kind} round {r}"
+    return None
+
+
 def check_mda_entry(torch, bundles, imgs, trans, targets, rel) -> list:
     """get_attribution("vit", "MDA") card vs CPU on each image: the
     adaptive blur (the test ViT's flat softmax grows klen past 63, to the
@@ -2337,62 +2408,33 @@ def check_mda_entry(torch, bundles, imgs, trans, targets, rel) -> list:
     then deletion, are held by the first-flip rule (the insertion search
     may also stop a round apart at a cutoff tie), and the maps within
     1e-4 where every pick agrees."""
-    import numpy as np
-
     from xai_tpu_torch import registry as R
-    from xai_tpu_torch.methods import mda as M
 
     runs = {}
     for name, b in bundles.items():
         runs[name] = []
-        real = M._greedy_search
         for x, t in zip(imgs, targets):
-            searches, klens = [], []
-
-            def spy(bundle, start, finish, seg_map, *a, **k):
-                out = real(bundle, start, finish, seg_map, *a, **k)
-                searches.append(dict(
-                    start=start.float().cpu().numpy(),
-                    finish=finish.float().cpu().numpy(),
-                    seg=np.asarray(seg_map), picks=list(out[0]),
-                    skip=[int(v) for v in k.get("skip") or []],
-                    norm=k.get("norm_pair"), cutoff=k.get("cutoff")))
-                return out
-
+            klens = []
             adaptive = _spy(R, "adaptive_blur", klens, lambda out: out[1])
-            M._greedy_search = spy
             try:
-                m = R.get_attribution("vit", "MDA", R.AttrContext(
-                    bundle=b, x=torch.as_tensor(x, device=b.device),
-                    trans_img=trans, target=t, img_hw=32))
+                with spied_mda_searches() as searches:
+                    m = R.get_attribution("vit", "MDA", R.AttrContext(
+                        bundle=b, x=torch.as_tensor(x, device=b.device),
+                        trans_img=trans, target=t, img_hw=32))
             finally:
-                M._greedy_search, R.adaptive_blur = real, adaptive
+                R.adaptive_blur = adaptive
             runs[name].append((m, searches, klens))
     out = []
     for i, t in enumerate(targets):
         (mg, sg, kg), (mc, sc, kc) = runs["cuda"][i], runs["cpu"][i]
-        if kg != kc or len(sg) != len(sc):
-            fail(f"tiny ViT registry MDA image {i}: klens {kg} vs {kc}, "
-                 f"{len(sg)} vs {len(sc)} searches card vs CPU")
-        flip = None
-        for kind, a, c in zip(("insertion", "deletion"), sg, sc):
-            if a["skip"] != c["skip"]:
-                fail(f"tiny ViT registry MDA image {i}: the {kind} search "
-                     f"was seeded with {a['skip']} vs {c['skip']}")
-            cut = None
-            if c["norm"] is not None and c["cutoff"] is not None:
-                orig, base = c["norm"]
-                cut = base + c["cutoff"] * abs(orig - base)
-            r = first_flipped_pick(bundles["cpu"], a["picks"], c["picks"],
-                                   c["start"], c["finish"], c["seg"], t,
-                                   skip=c["skip"], cutoff_prob=cut)
-            if r is not None:
-                flip = f"{kind} round {r}"
-                break
+        label = f"tiny ViT registry MDA image {i}"
+        if kg != kc:
+            fail(f"{label}: klens {kg} vs {kc} card vs CPU")
+        flip = first_flipped_search(bundles["cpu"], sg, sc, t, label)
         if flip is None:
             err = rel(mg, mc)
             if not err < 1e-4:
-                fail(f"tiny ViT registry MDA image {i} card vs CPU: {err}")
+                fail(f"{label} card vs CPU: {err}")
             out.append(f"klen {kc[0]}: {err:.3g}")
         else:
             out.append(f"klen {kc[0]}: flip at {flip}")
@@ -3246,7 +3288,7 @@ def time_warm_clip(torch, dev, card):
 ZOO_NAMES = ("VGG16", "VGG19", "IV3", "CONVNXT", "swin_tiny", "swin_small",
              "swin_base", "pvt_tiny", "pvt_small", "pvt_med", "MAXVIT",
              "VIT8", "VIT_tiny", "VIT_base", "VIT_large")
-ZOO_IMAGES = 500           # the finder's stream: five batches of 100
+ZOO_IMAGES = 200           # the finder's stream: two batches of 100
 ZOO_FULL_TOL = 1e-3        # full width, card vs CPU, of max |logit|
 ZOO_SMALL_TOL = 1e-4       # small widths, card vs CPU, relative
 
@@ -4118,6 +4160,229 @@ def check_mesh(torch, dev, out_dir, card) -> dict:
     return by_path
 
 
+# --- the library entry point: the three walkthroughs (ROADMAP A16) ---
+
+# each walkthrough as `python -m` runs it (runpy), in a process of its own,
+# its launches counted from 0 at its start and read at its end; its
+# seconds (the walkthrough's own, bundle build included) and the card's
+# peak memory beside them
+WALK_RUNNER = r"""
+import json, runpy, sys, time
+import torch
+from xai_tpu_torch.kernels import blur, quickshift, reveal
+module, *argv = sys.argv[1:]
+sys.argv = [module, *argv]
+t0 = time.perf_counter()
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+torch.cuda.synchronize()
+print("WALKTHROUGH " + json.dumps({
+    "s": time.perf_counter() - t0,
+    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    "launches": {"blur_planes": blur.blur_planes.launches,
+                 "reveal_batch": reveal.reveal_batch.launches,
+                 "quickshift_parents":
+                     quickshift.quickshift_parents.launches}}))
+"""
+WALK_TIMEOUT_S = 300
+# MDA's rescoring (methods/mda.py find_deletion_patches): an insertion and
+# a deletion pass of 225 curve points in chunks of 25
+MDA_RESCORE_REVEALS = 2 * math.ceil((224 + 1) / 25)
+# the ViT walkthrough's MDA patches
+WALK_MDA_PATCHES = 16
+
+
+def walkthroughs(out_dir: str) -> list:
+    """(label, module, flags, launches, what each run must print) of the
+    three walkthroughs at full width: R50 at 224 px (4 batteries), VIT16
+    with MDA (at klen 31: the insertion search's start and the
+    rescoring's substrate, one blur launch each, and the rescoring's
+    reveals) and CLIP16 (no kernel)."""
+    return [
+        ("walk_cnn", "xai_tpu_torch.examples.cnn_example",
+         ["--model", "R50", "--out", os.path.join(out_dir, "cnn.png")],
+         {"blur_planes": 4, "reveal_batch": 4 * REVEAL_PER_BATTERY,
+          "quickshift_parents": 0}, ("MAS_ins=", 4)),
+        ("walk_vit", "xai_tpu_torch.examples.vit_example", ["--with_mda"],
+         {"blur_planes": 2, "reveal_batch": MDA_RESCORE_REVEALS,
+          "quickshift_parents": 0}, ("map sum", 6)),
+        ("walk_clip", "xai_tpu_torch.examples.clip_example", [],
+         dict(NO_LAUNCHES), ("[P,P]=(14, 14)", 4)),
+    ]
+
+
+def write_walk_images(out_dir: str) -> tuple:
+    """An RGB JPEG of 400x300 (non-square: the resize and the crop act)
+    and an L-mode PNG, from np.random.RandomState(0)."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    jpg = os.path.join(out_dir, "walk.jpg")
+    Image.fromarray((rs.rand(300, 400, 3) * 255).astype(np.uint8),
+                    "RGB").save(jpg, "JPEG")
+    png = os.path.join(out_dir, "walk_l.png")
+    Image.fromarray((rs.rand(300, 400) * 255).astype(np.uint8),
+                    "L").save(png, "PNG")
+    return jpg, png
+
+
+def check_walk_input(torch, dev, jpg, png) -> None:
+    """load_and_preprocess on the card: the JPEG as a normalized [1, 224,
+    224, 3] input, the L image refused with None."""
+    import numpy as np
+
+    from xai_tpu_torch.ops import load_and_preprocess
+
+    if load_and_preprocess(png, device=dev) is not None:
+        fail("load_and_preprocess accepted an L-mode image")
+    trans, x = load_and_preprocess(jpg, device=dev)
+    if (trans.shape != (224, 224, 3) or not 0 <= trans.min() <= trans.max()
+            <= 1 or tuple(x.shape) != (1, 224, 224, 3)
+            or x.device.type != "cuda" or not bool(torch.isfinite(x).all())):
+        fail(f"load_and_preprocess on the JPEG: {trans.shape}, "
+             f"{tuple(x.shape)} on {x.device}")
+    print(f"load_and_preprocess: {os.path.basename(jpg)} (400x300 RGB) -> "
+          f"[1, 224, 224, 3] on {x.device}, mean {float(x.mean()):.4f}; "
+          f"{os.path.basename(png)} (L) -> None")
+
+
+def _printed_numbers(text: str, marker: str) -> list:
+    """The numbers on each line of ``text`` that holds ``marker``."""
+    import re
+
+    number = r"[-+]?(?:\d+\.?\d*(?:e[-+]?\d+)?|nan|inf)"
+    return [[float(v) for v in re.findall(number, ln.split(marker, 1)[1])]
+            for ln in text.splitlines() if marker in ln]
+
+
+def drive_walkthroughs(torch, dev, out_dir, card) -> dict:
+    """Phase 10, the library entry point: the two image files, then each
+    walkthrough at full width on the JPEG through its module's main, as
+    `python -m` runs it, in a process of its own (WALK_RUNNER).  Each must
+    exit 0, print its maps' or scores' lines with finite numbers and
+    launch each kernel as walkthroughs() says.  Returns the launches by
+    path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    jpg, png = write_walk_images(out_dir)
+    check_walk_input(torch, dev, jpg, png)
+    by_path = {}
+    for label, module, flags, want, (marker, lines) in walkthroughs(out_dir):
+        cmd = [sys.executable, "-c", WALK_RUNNER, module, "--image", jpg,
+               "--device", str(dev), *flags]
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                               timeout=WALK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"{label} did not finish within {WALK_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        print(r.stdout, end="")
+        if r.returncode != 0:
+            fail(f"{label} exited {r.returncode}: {r.stderr[-3000:]}")
+        rec = [ln for ln in r.stdout.splitlines()
+               if ln.startswith("WALKTHROUGH ")]
+        if len(rec) != 1:
+            fail(f"{label} printed no WALKTHROUGH line")
+        rec = json.loads(rec[0][len("WALKTHROUGH "):])
+        nums = _printed_numbers(r.stdout, marker)
+        if len(nums) != lines or not all(
+                v and all(math.isfinite(x) for x in v) for v in nums):
+            fail(f"{label}: {len(nums)} lines with {marker!r} ({lines} "
+                 f"expected) or a number not finite: {nums}")
+        if rec["launches"] != want:
+            fail(f"the {label} path launched {rec['launches']}, expected "
+                 f"{want}")
+        by_path[label] = rec["launches"]
+        print(f"{label} path: {wall:.3f} s wall, {rec['s']:.3f} s in the "
+              f"walkthrough (bundle build included), peak "
+              f"{rec['peak_gib']:.2f} GiB, launches "
+              f"{json.dumps(rec['launches'])} on {card}")
+    return by_path
+
+
+def check_walkthrough_reference(torch, dev):
+    """Phase 5, the walkthroughs' ``run`` card vs CPU on small models:
+    the CNN's on TINY_R at 32 px (an input of check_batch_reference, whose
+    ReLU inputs stay clear of zero), its four saliencies within 1e-4 and
+    its battery scores within 2e-3; the ViT's on a 5-block test ViT at 32
+    px (start_layer 4 of bidirectional weights a block), its five maps
+    within 1e-4 and MDA at 16 patches within 1e-4 where its picks agree
+    (else the first flipped pick must be a rounding-level tie); the
+    CLIP's on xai_tpu's tiny CLIP, its four maps within 1e-4."""
+    import numpy as np
+
+    from xai_tpu_torch.examples import clip_example, cnn_example, vit_example
+    from xai_tpu_torch.models import vit as tvit
+    from xai_tpu_torch.models.common import ModelBundle, ModelMeta
+    from xai_tpu_torch.runners.common import build_bundle, normalize_input
+
+    cpu = torch.device("cpu")
+    img = np.random.RandomState(9).rand(3, 32, 32, 3).astype(np.float32)[0]
+    x_vit = np.random.RandomState(2).randn(32, 32, 3).astype(np.float32)
+    trans = np.random.RandomState(3).rand(32, 32, 3).astype(np.float32)
+    cfg = tvit.ViTConfig(**dict(VIT32PX, depth=5))
+    runs = {}
+    for d in (dev, cpu):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            cnn = cnn_example.run(build_bundle("TINY_R", seed=1, device=d),
+                                  normalize_input(img, "cnn", d))
+            vit = ModelBundle(
+                ModelMeta(name="vit5", family="vit", img_hw=32,
+                          num_classes=16, num_patches=cfg.grid,
+                          batch_size=8, mean=(0.5,) * 3, std=(0.5,) * 3),
+                tvit.init_random(tvit.VisionTransformer(cfg), 0).to(d))
+            with spied_mda_searches() as searches:
+                vmaps = vit_example.run(vit, torch.as_tensor(x_vit,
+                                                             device=d),
+                                        trans, with_mda=True,
+                                        patch_count=WALK_MDA_PATCHES)
+            clip = tiny_clip(torch, d)
+            cmaps = clip_example.run(
+                clip, torch.as_tensor(x_vit, device=d),
+                clip.text_embeddings[:1],
+                torch.tensor(CLIP_TOKS[:1], device=d))
+        runs[d.type] = cnn, vit, vmaps, searches, cmaps
+    (cnn_g, _, vit_g, srch_g, clip_g) = runs["cuda"]
+    (cnn_c, vit_c, vitm_c, srch_c, clip_c) = runs["cpu"]
+    errs = {}
+    for name, (sal, scores) in cnn_g.items():
+        errs[f"cnn {name}"] = _rel_err(sal, cnn_c[name][0])
+        worst = max(abs(scores[k] - cnn_c[name][1][k]) for k in scores)
+        if not (all(math.isfinite(v) for v in scores.values())
+                and worst < 2e-3):
+            fail(f"CNN walkthrough {name} battery card vs CPU: {worst}")
+    flip = None
+    for name in vit_g:
+        if name == "MDA":
+            target = int(np.argmax(vit_c.apply(torch.as_tensor(
+                x_vit).permute(2, 0, 1)[None]).detach().numpy()))
+            flip = first_flipped_search(vit_c, srch_g, srch_c, target,
+                                        "ViT walkthrough MDA")
+            if flip is not None:
+                continue
+        errs[f"vit {name}"] = _rel_err(vit_g[name], vitm_c[name])
+    errs.update({f"clip {n}": _rel_err(m, clip_c[n])
+                 for n, m in clip_g.items()})
+    if not all(e < 1e-4 for e in errs.values()):
+        fail(f"walkthroughs card vs CPU: {errs}")
+    print("walkthroughs' run card vs CPU, float32 rel err (< 1e-4; battery "
+          "scores < 2e-3): " + ", ".join(f"{k} {v:.3g}"
+                                         for k, v in errs.items())
+          + ("" if flip is None else
+             f"; MDA: a rounding-level tie flipped at {flip}"))
+
+
+@contextlib.contextmanager
+def timed_phase(phases: dict, name: str):
+    """Adds the block's wall seconds to ``phases[name]`` and prints
+    them."""
+    t0 = time.perf_counter()
+    yield
+    phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
+    print(f"phase {name}: {phases[name]:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -4143,10 +4408,10 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    report = _build.build()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s for "
-          f"{sorted(report) or 'nothing (already built)'}")
+    phases = {}
+    with timed_phase(phases, "kernel build"):
+        report = _build.build()
+    print(f"kernel build: {sorted(report) or 'nothing (already built)'}")
     for name, r in report.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -4155,53 +4420,78 @@ def main() -> None:
     img = np.random.RandomState(0).rand(224, 224, 3)
     x_hwc = normalize(torch.as_tensor(img, dtype=torch.float32, device=dev),
                       IMAGENET_MEAN, IMAGENET_STD)
-    rows = check_kernels(torch, dev, x_hwc)
-    rows.append(check_quickshift(torch, dev))
+    with timed_phase(phases, "3 kernels"):
+        rows = check_kernels(torch, dev, x_hwc)
+        rows.append(check_quickshift(torch, dev))
 
-    classes = synthetic_classes(torch, dev, 8)
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:
-        for label, *path in MAIN_PATHS + VIT_PATHS:
-            by_path[label] = run_main_path(torch, dev, out_dir, label, *path)
-        by_path.update(drive_driver_paths(torch, dev, out_dir, classes,
-                                          have))
-        by_path.update(drive_vit_driver_paths(torch, dev, out_dir, have))
-        for label, *path in SLICE2_PATHS:
-            by_path[label] = run_slice2_path(torch, dev, out_dir, label,
-                                             *path)
-        by_path["vit16_MDA_confident"] = run_slice2_path(
-            torch, dev, out_dir, "vit16_MDA_confident",
-            ["--attr_func", "MDA"], 1, 1, 1, "VIT16", confident=True)
-        by_path.update(drive_slice2_driver_paths(torch, dev, out_dir))
-        k16, clip_classes = two_class_images(torch, dev, "CLIP16")
-        k32, _ = two_class_images(torch, dev, "CLIP32")
-        for label, *path, scored in clip_paths(k16, k32):
-            by_path[label] = run_main_path(torch, dev, out_dir, label, *path,
-                                           min_scored=scored)
-        by_path.update(drive_clip_driver_paths(torch, dev, out_dir,
-                                               clip_classes, have))
-        by_path.update(drive_zoo_paths(torch, dev, out_dir, card))
-        by_path.update(single_process_references(torch, dev, out_dir))
-        by_path.update(check_two_processes(torch, dev, out_dir, by_path))
-        by_path.update(check_profiles(torch, dev, out_dir, card))
-        by_path.update(check_mesh(torch, dev, out_dir, card))
-    check_small_reference(torch, dev)
-    check_batch_reference(torch, dev)
-    check_a8_reference(torch, dev)
-    check_tiny_drivers(torch, dev)
-    check_vit_reference(torch, dev)
-    check_tiny_vit_drivers(torch, dev)
-    check_slice2_reference(torch, dev, have)
-    check_clip_reference(torch, dev)
-    check_zoo_reference(torch, dev)
-    bundle, per_image = time_warm_image(torch, dev, card)
-    time_warm_batch(torch, dev, card, bundle, per_image)
-    time_warm_a8(torch, dev, card, bundle)
-    time_warm_drivers(torch, dev, card, bundle)
-    del bundle
-    time_warm_vit(torch, dev, card)
-    time_warm_slice2(torch, dev, card)
-    time_warm_clip(torch, dev, card)
+        with timed_phase(phases, "4 CNN paths"):
+            classes = synthetic_classes(torch, dev, 8)
+            for label, *path in MAIN_PATHS:
+                by_path[label] = run_main_path(torch, dev, out_dir, label,
+                                               *path)
+            by_path.update(drive_driver_paths(torch, dev, out_dir, classes,
+                                              have))
+        with timed_phase(phases, "4 ViT paths"):
+            for label, *path in VIT_PATHS:
+                by_path[label] = run_main_path(torch, dev, out_dir, label,
+                                               *path)
+            by_path.update(drive_vit_driver_paths(torch, dev, out_dir, have))
+        with timed_phase(phases, "4 ViT slice-2 paths"):
+            for label, *path in SLICE2_PATHS:
+                by_path[label] = run_slice2_path(torch, dev, out_dir, label,
+                                                 *path)
+            by_path["vit16_MDA_confident"] = run_slice2_path(
+                torch, dev, out_dir, "vit16_MDA_confident",
+                ["--attr_func", "MDA"], 1, 1, 1, "VIT16", confident=True)
+            by_path.update(drive_slice2_driver_paths(torch, dev, out_dir))
+        with timed_phase(phases, "4 CLIP paths"):
+            k16, clip_classes = two_class_images(torch, dev, "CLIP16")
+            k32, _ = two_class_images(torch, dev, "CLIP32")
+            for label, *path, scored in clip_paths(k16, k32):
+                by_path[label] = run_main_path(torch, dev, out_dir, label,
+                                               *path, min_scored=scored)
+            by_path.update(drive_clip_driver_paths(torch, dev, out_dir,
+                                                   clip_classes, have))
+        with timed_phase(phases, "4 zoo paths"):
+            by_path.update(drive_zoo_paths(torch, dev, out_dir, card))
+        with timed_phase(phases, "7 two processes"):
+            by_path.update(single_process_references(torch, dev, out_dir))
+            by_path.update(check_two_processes(torch, dev, out_dir,
+                                               by_path))
+        with timed_phase(phases, "8 profiles"):
+            by_path.update(check_profiles(torch, dev, out_dir, card))
+        with timed_phase(phases, "9 mesh"):
+            by_path.update(check_mesh(torch, dev, out_dir, card))
+        with timed_phase(phases, "10 walkthroughs"):
+            by_path.update(drive_walkthroughs(torch, dev, out_dir, card))
+    for name, check in (
+            ("5 TINY_R", lambda: check_small_reference(torch, dev)),
+            ("5 TINY_R batched", lambda: check_batch_reference(torch, dev)),
+            ("5 CNN family", lambda: check_a8_reference(torch, dev)),
+            ("5 TINY_R drivers", lambda: check_tiny_drivers(torch, dev)),
+            ("5 ViT", lambda: check_vit_reference(torch, dev)),
+            ("5 ViT drivers", lambda: check_tiny_vit_drivers(torch, dev)),
+            ("5 ViT slice 2", lambda: check_slice2_reference(torch, dev,
+                                                            have)),
+            ("5 CLIP", lambda: check_clip_reference(torch, dev)),
+            ("5 zoo", lambda: check_zoo_reference(torch, dev)),
+            ("5 walkthroughs", lambda: check_walkthrough_reference(torch,
+                                                                  dev))):
+        with timed_phase(phases, name):
+            check()
+    with timed_phase(phases, "6 CNN timing"):
+        bundle, per_image = time_warm_image(torch, dev, card)
+        time_warm_batch(torch, dev, card, bundle, per_image)
+        time_warm_a8(torch, dev, card, bundle)
+        time_warm_drivers(torch, dev, card, bundle)
+        del bundle
+    with timed_phase(phases, "6 ViT timing"):
+        time_warm_vit(torch, dev, card)
+        time_warm_slice2(torch, dev, card)
+    with timed_phase(phases, "6 CLIP timing"):
+        time_warm_clip(torch, dev, card)
 
     for row in rows:
         name = row["name"]
@@ -4212,6 +4502,7 @@ def main() -> None:
         print(f"{name}: kernel {row['ms'] * 1e3:.2f} us, plain "
               f"{row['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}) on {card}")
+    print(json.dumps({"phases_s": phases}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
           f"to the result lines")
     print(card)

@@ -125,3 +125,14 @@ def blur_planes(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
 
 
 blur_planes.launches = 0
+
+
+def separable_blur(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
+                   ) -> torch.Tensor:
+    """``[B, H, W, C]`` -> blurred alike: the layout of xai_tpu's
+    ``separable_blur`` and ``pallas_blur``, each (image, channel) plane
+    through :func:`blur_planes`."""
+    b, h, w, c = x.shape
+    planes = x.permute(0, 3, 1, 2).reshape(b * c, h, w).contiguous()
+    return blur_planes(planes, klen, nsig).reshape(b, c, h, w).permute(
+        0, 2, 3, 1)

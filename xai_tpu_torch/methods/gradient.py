@@ -186,6 +186,24 @@ def lig(bundle, x: torch.Tensor, target: int, steps: int = 50,
     return ig(bundle, x, target, steps, alpha_star, baseline, chunk)
 
 
+def ig_batch(bundle, xs: torch.Tensor, targets, steps: int = 50,
+             chunk: int = 100, dtype=None) -> torch.Tensor:
+    """IG of a batch of images with a zero baseline, xai_tpu's library
+    ``ig_batch``: ``[B, H, W, C]`` inputs, one target each -> ``[B, H, W,
+    C]``.  The image and interpolation axes fold into one sweep of
+    ``B * steps`` rows, each ``alpha * x`` with the alphas of
+    ``jnp.linspace(0, 1, steps)`` (both ends), ``chunk`` rows a forward
+    and backward (stepped down until it divides ``B * steps``).  Each
+    image's gradients are averaged, then multiplied by its float32 input;
+    ``dtype=torch.bfloat16`` runs the sweep on the bundle's bf16 copy."""
+    x = xs.permute(0, 3, 1, 2)
+    tg = torch.as_tensor(targets, dtype=torch.int64, device=xs.device)
+    mean = _ig_sweep(bundle.cast(dtype), None, x,
+                     tg.view(-1).repeat_interleave(steps), steps, 1.0,
+                     _fit_chunk(x.shape[0] * steps, chunk))
+    return (mean * x).permute(0, 2, 3, 1)
+
+
 # ---------------------------------------------------------------------------
 # IDG (saliencyMethods.py:74-136, 226-314)
 # ---------------------------------------------------------------------------

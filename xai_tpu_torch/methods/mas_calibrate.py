@@ -27,6 +27,8 @@ from ..metrics.curves import patch_flip_steps, pixel_flip_steps, \
 from ..native import project_curve
 from ..ops.blur import make_blur_fn
 from ..ops.resize import resize_bilinear, resize_nearest_exact
+from ..ops.stats import auc
+from .mda import find_deletion_patches, find_insertion_patches
 
 # optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -57,11 +59,6 @@ def jax_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
     hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
-
-
-def auc(arr: torch.Tensor) -> torch.Tensor:
-    """MASTestFunctions.py:30-32, the normalized trapezoid."""
-    return (arr.sum() - arr[0] / 2 - arr[-1] / 2) / (arr.shape[0] - 1)
 
 
 def _normalize_response(resp, original, base, mode):
@@ -313,6 +310,26 @@ class Adam:
         nu_hat = self.nu / (1 - torch.tensor(ADAM_B2, **f32) ** self.count)
         return param + (-self.lr) * (mu_hat / (torch.sqrt(nu_hat)
                                                + ADAM_EPS))
+
+
+def find_deletion_from_insertion_informed_ultimate(
+        bundle, x, segments, prior_segmented, beginning_order, blur_fn,
+        n_searches, kappa: float = 0.005, **kw):
+    """MASCalibrate.py:748-983, MDA's deletion search under its calibration
+    name: :func:`mda.find_deletion_patches`, returning its (sparse, dense)
+    map pair."""
+    sparse, _, dense = find_deletion_patches(
+        bundle, x, segments, prior_segmented, beginning_order, blur_fn,
+        n_searches, kappa=kappa, **kw)
+    return sparse, dense
+
+
+def find_best_segment_reverse_informed(bundle, x, prior_segmented, segments,
+                                       blur_fn, n_searches, **kw):
+    """MASCalibrate.py:81-299, MDA's prior-informed insertion search under
+    its calibration name: :func:`mda.find_insertion_patches`."""
+    return find_insertion_patches(bundle, x, prior_segmented, segments,
+                                  blur_fn, n_searches, **kw)
 
 
 def refine_attribution(bundle, x, saliency_3c, lr=None, smoothing=False,

@@ -5,9 +5,10 @@ byte for byte.  g++ compiles it at first use into ``native/build/``
 (git-ignored), under a name that hashes the source and the flags, the way
 ``kernels/_build.py`` builds the CUDA sources.  There is no fallback: if
 the library cannot be built, the call raises.  Bound: ``felzenszwalb``
-(XRAI's and MAC's segmenter), ``slic`` (MDA's) and ``project_curve``
-(MDA's and the metrics' curve projection); LIME's quickshift runs on the
-card instead (``kernels/quickshift.py``).
+(XRAI's and MAC's segmenter), ``slic`` (MDA's), ``quickshift`` (LIME's
+default segmenter on the host, xai_tpu's library helper; the LIME path
+segments on the card instead, ``kernels/quickshift.py``) and
+``project_curve`` (MDA's and the metrics' curve projection).
 """
 from __future__ import annotations
 
@@ -79,6 +80,10 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                  i32p]
             lib.slic.restype = ctypes.c_int
+            lib.quickshift.argtypes = [f32p, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_float,
+                                       ctypes.c_float, i32p]
+            lib.quickshift.restype = ctypes.c_int
             lib.project_curve.argtypes = [f64p, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_int, f64p]
             lib.project_curve.restype = None
@@ -109,6 +114,19 @@ def slic(image: np.ndarray, n_segments: int, compactness: float = 10.0,
     labels = np.empty((h, w), np.int32)
     load().slic(img, h, w, n_segments, compactness, max_iter,
                 labels.reshape(-1))
+    return labels
+
+
+def quickshift(image: np.ndarray, ratio: float = 0.2,
+               kernel_size: float = 4.0, max_dist: float = 200.0
+               ) -> np.ndarray:
+    """LIME's default segmenter (lime/wrappers/scikit_image.py:87) on the
+    host: ``[H, W, 3]`` float RGB -> ``[H, W]`` int32 labels."""
+    img = np.ascontiguousarray(image, dtype=np.float32)
+    h, w = img.shape[:2]
+    labels = np.empty((h, w), np.int32)
+    load().quickshift(img, h, w, ratio, kernel_size, max_dist,
+                      labels.reshape(-1))
     return labels
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``xai_tpu/ops/preprocess.py``.  The reference pipeline
 (evaluatePerturbation.py:690-694) is Resize(img_hw) with PIL bilinear,
 CenterCrop(img_hw), ToTensor, then a per-family Normalize; PIL is used
-directly for bit-exact parity.
+directly for bit-exact parity.  :func:`load_and_preprocess` is how a
+user puts an image file through that pipeline.
 """
 from __future__ import annotations
 
@@ -51,3 +52,30 @@ def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
     mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
     std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
     return (x - mean) / std
+
+
+def denormalize(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """The inverse of :func:`normalize`, channels last."""
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
+    return x * std + mean
+
+
+def load_and_preprocess(path: str, img_hw: int = 224, mean=IMAGENET_MEAN,
+                        std=IMAGENET_STD, device=None):
+    """path -> (trans_img ``[H, W, 3]`` numpy in [0, 1], the normalized
+    input ``[1, H, W, 3]`` on ``device``; CUDA unless the caller passes
+    ``device="cpu"``).
+
+    Returns None for the images the reference skips
+    (evaluatePerturbation.py:539-541 checks shape == (3, hw, hw)): an image
+    not in RGB mode is resized and cropped in its own mode, and kept only
+    if that gives three channels."""
+    from ..runners.common import resolve_device
+
+    device = resolve_device(device)
+    with Image.open(path) as img:
+        arr = center_crop_resize(img, img_hw)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        return None
+    return arr, normalize(torch.as_tensor(arr, device=device), mean, std)[None]
