@@ -279,9 +279,11 @@ def test_unported_flags_raise(tmp_path, params_path, flag):
         assert os.listdir(flag[1]) == ["TINY_R_ig_p0.trace.json"]
         with open(TD.trace_path(args)) as f:
             events = json.load(f)["traceEvents"]
-        # CPU events of the bundle's build and of the battery's forwards
+        # CPU events of the bundle's build and of the battery's forwards,
+        # and the program's own spans (utils/trace.py) above them
         names = {e.get("name") for e in events}
         assert "aten::conv2d" in names and len(events) > 100
+        assert {"battery", "battery.score", "attribution"} <= names
 
 
 def test_unported_model_and_method_raise(tmp_path, monkeypatch):

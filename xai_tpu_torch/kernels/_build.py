@@ -33,8 +33,8 @@ KERNELS = ("blur", "reveal", "quickshift")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a mesh battery launches from one host thread a data shard
-# (parallel/sharded_battery.py): the first loads and the launch counters
-# are shared between them
+# (parallel/sharded_battery.py): the first loads are shared between them
+# (the launch counters are utils/trace.py's)
 _LOCK = threading.Lock()
 
 
@@ -99,13 +99,6 @@ def load(name: str) -> ctypes.CDLL:
     lib.xai_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xai_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def count(wrapper, launches: int = 1) -> None:
-    """Add ``launches`` to ``wrapper.launches``, a kernel wrapper's count
-    of its launches, safely from any thread."""
-    with _LOCK:
-        wrapper.launches += launches
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

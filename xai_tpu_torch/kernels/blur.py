@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.blur import gaussian_blur, gkern
+from ..utils import trace
 from . import _build
 
 # csrc/blur.cu instantiates its fused kernel for every odd klen up to it
@@ -120,7 +121,7 @@ def blur_planes(x: torch.Tensor, klen: int = 31, nsig: float = 31.0
                        x.device.index, stream)
             launched = 2
     _build.check(lib, err, "blur_planes")
-    _build.count(blur_planes, launched)
+    trace.count_launches(blur_planes, launched)
     return out
 
 

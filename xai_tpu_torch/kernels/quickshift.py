@@ -37,6 +37,7 @@ import functools
 import torch
 
 from ..ops.quickshift import lab_planes, parents_plain
+from ..utils import trace
 from . import _build
 
 # the largest window the kernel takes; its run-time instantiation serves
@@ -86,7 +87,7 @@ def parents_density(lab: torch.Tensor, w: int, wd: int, inv2s2: float,
                  w, wd, inv2s2, max_d2, lab.device.index,
                  torch.cuda.current_stream(lab.device).cuda_stream)
     _build.check(lib, err, "quickshift_parents")
-    _build.count(quickshift_parents)
+    trace.count_launches(quickshift_parents)
     return out, dens
 
 

@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 
@@ -85,7 +86,7 @@ def reveal_batch(start: torch.Tensor, finish: torch.Tensor,
                  start.device.index,
                  torch.cuda.current_stream(start.device).cuda_stream)
     _build.check(lib, err, "reveal_batch")
-    _build.count(reveal_batch)
+    trace.count_launches(reveal_batch)
     return out
 
 

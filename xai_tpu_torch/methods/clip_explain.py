@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import clip as clipmod
+from ..utils import trace
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +138,7 @@ def _last(bundle):
 @torch.no_grad()
 def encode_dense(bundle, x) -> DenseOutputs:
     visual, blk = _last(bundle)
+    trace.count("model_rows", x.shape[0])
     x_in = visual(_prepare(bundle, x), stop_before_last=True)
     q, k, v = _dense_qkv(x_in, blk)
     attn, att_output = _dense_attention(q, k, v, f32=True)
@@ -235,6 +237,7 @@ def mm_grads(bundle, x, text_tokens):
                               seq=text_tokens.shape[1], device=xb.device)
     pv = vis["attn"].requires_grad_(True)
     pt = txt["attn"].requires_grad_(True)
+    trace.count("model_rows", xb.shape[0])
     with torch.enable_grad():
         lpi, _, vtap, ttap = bundle.module(xb, text_tokens,
                                            vis_probes={"attn": pv},

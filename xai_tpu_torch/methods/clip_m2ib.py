@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..utils import trace
 from .clip_explain import _prepare, _unit, ln, mlp, mm
 from .clip_surgery import mha
 from .mas_calibrate import Adam
@@ -45,6 +46,7 @@ from .mas_calibrate import Adam
 def visual_prefix(bundle, xb, vlayer: int) -> torch.Tensor:
     """The output of visual blocks 0..vlayer ``[B, N, W]``."""
     visual = bundle.module.visual
+    trace.count("model_rows", xb.shape[0])
     y = visual.embed(xb)
     for blk in visual.blocks()[:vlayer + 1]:
         y, _ = blk(y)

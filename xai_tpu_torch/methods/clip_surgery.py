@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..utils import trace
 from .clip_explain import _prepare, _unit, dense, ln, mlp, mm
 
 SURGERY_DEPTH = 6
@@ -56,6 +57,7 @@ def surgery_encode(bundle, x) -> torch.Tensor:
     visual tower."""
     visual = bundle.module.visual
     xb = _prepare(bundle, x)
+    trace.count("model_rows", xb.shape[0])
     y = visual.conv1(xb).flatten(2).transpose(1, 2)
     y = torch.cat([visual.class_embedding.expand(y.shape[0], 1, -1), y],
                   dim=1)

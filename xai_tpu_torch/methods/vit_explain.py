@@ -25,6 +25,7 @@ import torch
 
 from ..models import vit as vitmod
 from ..models.common import target_scores
+from ..utils import trace
 from .gradient import _interp, _uniform_alphas
 
 
@@ -85,6 +86,7 @@ def _attn_ig_grads(bundle, xb, tg, steps: int, chunk: int = 20):
         probe = torch.zeros((hi - lo, cfg.num_heads, cfg.tokens, cfg.tokens),
                             dtype=xb.dtype, device=xb.device,
                             requires_grad=True)
+        trace.count("model_rows", hi - lo)
         with torch.enable_grad():
             logits = bundle.module(build(lo, hi).to(xb.dtype), probes={
                 "attn": [None] * (cfg.depth - 1) + [probe]})

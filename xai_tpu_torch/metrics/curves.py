@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.reveal import reveal_batch
 from ..ops.stats import auc_np, entropy_bits, spearman_np
+from ..utils.trace import span
 
 
 @dataclasses.dataclass
@@ -294,8 +295,9 @@ def assemble_battery_scores(ins_tp, ins_t1, del_tp, del_t1, lerf_tp,
 def flip_schedules(saliencies: np.ndarray, step_size: int) -> tuple:
     """``[B, H, W]`` saliencies -> (descending, ascending) flip steps,
     each ``[B, H*W]`` int32 (:func:`pixel_flip_steps`, on the host)."""
-    return tuple(np.stack([pixel_flip_steps(s, step_size, descending=d)
-                           for s in saliencies]) for d in (True, False))
+    with span("battery.schedule"):
+        return tuple(np.stack([pixel_flip_steps(s, step_size, descending=d)
+                               for s in saliencies]) for d in (True, False))
 
 
 def battery_curves(apply_fn, blur_fn, x: torch.Tensor, desc: torch.Tensor,
@@ -315,9 +317,10 @@ def assemble_scores(curves: np.ndarray, saliencies: np.ndarray,
                     desc: np.ndarray, n_steps: int) -> list:
     """One 10-score dict per image from :func:`battery_curves`' host
     copy ``[5, B, n_steps + 1]``."""
-    return [assemble_battery_scores(*curves[:, i], saliencies[i], desc[i],
-                                    n_steps)
-            for i in range(curves.shape[1])]
+    with span("battery.score"):
+        return [assemble_battery_scores(*curves[:, i], saliencies[i],
+                                        desc[i], n_steps)
+                for i in range(curves.shape[1])]
 
 
 def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
@@ -337,17 +340,21 @@ def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
     step_size = step_size or h
     n_steps = (h * w + step_size - 1) // step_size
 
-    desc, asc = flip_schedules(saliencies, step_size)
-    dev = images.device
-    x = images.permute(0, 3, 1, 2).contiguous()
-    if targets is not None:
-        targets = torch.as_tensor(targets, dtype=torch.int64, device=dev)
-    curves = battery_curves(
-        apply_fn, blur_fn, x, torch.from_numpy(desc.reshape(b, h, w)).to(dev),
-        torch.from_numpy(asc.reshape(b, h, w)).to(dev), n_steps, chunk,
-        targets)
-    # one device -> host copy for the five curves the scores read
-    return assemble_scores(curves.cpu().numpy(), saliencies, desc, n_steps)
+    with span("battery"):
+        desc, asc = flip_schedules(saliencies, step_size)
+        dev = images.device
+        x = images.permute(0, 3, 1, 2).contiguous()
+        if targets is not None:
+            targets = torch.as_tensor(targets, dtype=torch.int64, device=dev)
+        curves = battery_curves(
+            apply_fn, blur_fn, x,
+            torch.from_numpy(desc.reshape(b, h, w)).to(dev),
+            torch.from_numpy(asc.reshape(b, h, w)).to(dev), n_steps, chunk,
+            targets)
+        # one device -> host copy for the five curves the scores read
+        with span("battery.read"):
+            host = curves.cpu().numpy()
+        return assemble_scores(host, saliencies, desc, n_steps)
 
 
 def run_battery(apply_fn, input_img: torch.Tensor, saliency: np.ndarray,

@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.preprocess import CLIP_MEAN, CLIP_STD
+from ..utils import trace
 from .common import ModelBundle, ModelMeta, lecun_init_
 from .vit import LayerNorm
 
@@ -319,6 +320,7 @@ class CLIPBundle(ModelBundle):
         return moved
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        trace.count("model_rows", x.shape[0])
         te = self.text_embeddings
         emb = self.module.encode_image(x)[:, 0]
         return emb.to(te.dtype) @ te.T / 0.1
@@ -326,9 +328,11 @@ class CLIPBundle(ModelBundle):
     logits = apply
 
     def apply_taps(self, x: torch.Tensor):
+        trace.count("model_rows", x.shape[0])
         return self.module.encode_image(x, taps=True)
 
     def apply_probed(self, x: torch.Tensor, probes: dict):
+        trace.count("model_rows", x.shape[0])
         return self.module.encode_image(x, probes=probes, taps=True)
 
 

@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +44,10 @@ class ModelBundle:
 
     ``apply`` maps an NCHW batch to logits; ``apply_taps`` also returns the
     dict of taps (stage activations, resnet.py; stacked per-block
-    intermediates, vit.py); ``apply_probed`` adds zero probes to them."""
+    intermediates, vit.py); ``apply_probed`` adds zero probes to them.
+    Each entry that runs the module adds its rows to the counter
+    ``model_rows`` (``utils/trace.py``); a method that runs the module
+    itself from its input adds them where it does."""
 
     def __init__(self, meta: ModelMeta, module: nn.Module):
         self.meta = meta
@@ -118,6 +122,7 @@ class ModelBundle:
         return self._guided
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        trace.count("model_rows", x.shape[0])
         return self.module(x)
 
     # xai_tpu's bundle has both apply(params, x) and logits(x); with the
@@ -125,18 +130,21 @@ class ModelBundle:
     logits = apply
 
     def apply_taps(self, x: torch.Tensor):
+        trace.count("model_rows", x.shape[0])
         return self.module(x, taps=True)
 
     def apply_tokens(self, x: torch.Tensor, token_indices: torch.Tensor):
         """ViT only: logits with only CLS and the ``token_indices`` patch
         tokens kept after the positional embedding (``[K]`` for the batch,
         or ``[B, K]`` a row)."""
+        trace.count("model_rows", x.shape[0])
         return self.module(x, token_indices=token_indices)
 
     def apply_probed(self, x: torch.Tensor, probes: dict):
         """(logits, taps) with ``probes[name]`` added to the tap ``name``:
         the gradient with respect to a zero probe is the gradient with
         respect to that activation."""
+        trace.count("model_rows", x.shape[0])
         return self.module(x, taps=True, probes=probes)
 
     @torch.inference_mode()

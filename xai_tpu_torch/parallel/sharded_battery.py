@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..metrics import curves
+from ..utils.trace import span
 from .mesh import Mesh, make_mesh, row_forwards, shard_slices
 
 
@@ -49,31 +50,41 @@ def sharded_battery_scores(bundle, images: torch.Tensor, saliencies,
     saliencies = np.asarray(saliencies)
     b, h, w, _ = images.shape
     n_steps = w                         # the battery's step size is h
-    desc, asc = curves.flip_schedules(saliencies, h)
-    x = images.permute(0, 3, 1, 2).contiguous()
-    desc_t = torch.from_numpy(desc.reshape(b, h, w))
-    asc_t = torch.from_numpy(asc.reshape(b, h, w))
-    if targets is not None:
-        targets = torch.as_tensor(targets, dtype=torch.int64)
-    # a copy between cards runs on the source card's stream, behind the
-    # work queued there, so a copy made after row 0's battery would hold
-    # the next row until row 0 had finished
-    shards = []
-    for r, sl in shard_slices(mesh, b):
-        dev = mesh.devices[r][0]
-        shards.append((forwards[r], blur_fn, x[sl].to(dev),
-                       desc_t[sl].to(dev), asc_t[sl].to(dev), n_steps, chunk,
-                       None if targets is None else targets[sl].to(dev)))
-    if len(shards) == 1:
-        out = [curves.battery_curves(*shards[0])]
-    else:
-        # one host thread a shard: a card's launch queue holds about a
-        # thousand kernels and a shard's battery enqueues thousands, so a
-        # single thread would wait on row 0's queue until row 0 had nearly
-        # finished before it enqueued row 1 (the cards would take turns)
-        with ThreadPoolExecutor(len(shards)) as pool:
-            futures = [pool.submit(curves.battery_curves, *s)
-                       for s in shards]
-            out = [f.result() for f in futures]
-    host = np.concatenate([c.cpu().numpy() for c in out], axis=1)
-    return curves.assemble_scores(host, saliencies, desc, n_steps)
+    with span("battery") as battery:
+        desc, asc = curves.flip_schedules(saliencies, h)
+        x = images.permute(0, 3, 1, 2).contiguous()
+        desc_t = torch.from_numpy(desc.reshape(b, h, w))
+        asc_t = torch.from_numpy(asc.reshape(b, h, w))
+        if targets is not None:
+            targets = torch.as_tensor(targets, dtype=torch.int64)
+        # a copy between cards runs on the source card's stream, behind the
+        # work queued there, so a copy made after row 0's battery would
+        # hold the next row until row 0 had finished
+        shards = []
+        for r, sl in shard_slices(mesh, b):
+            dev = mesh.devices[r][0]
+            shards.append((battery, str(dev), forwards[r], blur_fn,
+                           x[sl].to(dev), desc_t[sl].to(dev),
+                           asc_t[sl].to(dev), n_steps, chunk,
+                           None if targets is None else targets[sl].to(dev)))
+        if len(shards) == 1:
+            out = [_shard_curves(*shards[0])]
+        else:
+            # one host thread a shard: a card's launch queue holds about a
+            # thousand kernels and a shard's battery enqueues thousands, so
+            # a single thread would wait on row 0's queue until row 0 had
+            # nearly finished before it enqueued row 1 (the cards would
+            # take turns)
+            with ThreadPoolExecutor(len(shards)) as pool:
+                futures = [pool.submit(_shard_curves, *s) for s in shards]
+                out = [f.result() for f in futures]
+        with span("battery.read"):
+            host = np.concatenate([c.cpu().numpy() for c in out], axis=1)
+        return curves.assemble_scores(host, saliencies, desc, n_steps)
+
+
+def _shard_curves(battery, card, *args):
+    """One data shard's ``battery_curves``, enqueued (not read) under the
+    span ``battery.shard``, a child of the span ``battery``."""
+    with span("battery.shard", parent=battery, card=card):
+        return curves.battery_curves(*args)

@@ -32,6 +32,7 @@ from .methods.rise import rise
 from .methods.xrai import xrai
 from .ops.blur import make_blur_fn
 from .ops.resize import resize_bilinear, resize_nearest_exact
+from .utils.trace import span
 
 
 @dataclasses.dataclass
@@ -231,4 +232,5 @@ def get_attribution(family: str, name: str, ctx: AttrContext) -> np.ndarray:
         raise KeyError(
             f"unknown {family} attribution '{name}'; available: "
             f"{sorted(methods)}")
-    return np.asarray(methods[name](ctx))
+    with span("attribution"):
+        return np.asarray(methods[name](ctx))

@@ -25,6 +25,7 @@ from ..ops.blur import make_blur_fn
 from ..ops.preprocess import (CLIP_MEAN, CLIP_STD, IMAGENET_MEAN,
                               IMAGENET_STD, VIT_MEAN, VIT_STD, normalize)
 from ..registry import AttrContext, get_attribution
+from ..utils.trace import span
 
 ATTR_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
@@ -100,8 +101,9 @@ def family_stats(family: str):
 def normalize_input(trans_img: np.ndarray, family: str,
                     device) -> torch.Tensor:
     """[H, W, C] in [0, 1] -> normalized [H, W, C] on ``device``."""
-    return normalize(torch.as_tensor(trans_img, device=device),
-                     *family_stats(family))
+    with span("normalize_input"):
+        return normalize(torch.as_tensor(trans_img, device=device),
+                         *family_stats(family))
 
 
 def image_gates(bundle, x: torch.Tensor, blur_fn, gates: bool = True):
@@ -110,21 +112,22 @@ def image_gates(bundle, x: torch.Tensor, blur_fn, gates: bool = True):
     and black images; the image is usable iff blur/black confidences are
     lower and classes differ.  ``gates=False`` (--skip_gates / synthetic
     runs) returns after the first forward.  x: [H, W, C]."""
-    xb = x.permute(2, 0, 1)[None].contiguous()
-    probs = bundle.probs(xb)[0].cpu().numpy()
-    target = int(probs.argmax())
-    original_pred = float(probs[target])
-    if not gates:
-        return target, original_pred, True
-    bl = bundle.probs(blur_fn(xb))[0].cpu().numpy()
-    blur_class = int(bl.argmax())
-    blur_own = float(bl[blur_class])
-    bk = bundle.probs(torch.zeros_like(xb))[0].cpu().numpy()
-    black_class = int(bk.argmax())
-    black_own = float(bk[black_class])
-    ok = not (blur_own >= original_pred or black_own >= original_pred
-              or target == black_class or target == blur_class)
-    return target, original_pred, ok
+    with span("image_gates"):
+        xb = x.permute(2, 0, 1)[None].contiguous()
+        probs = bundle.probs(xb)[0].cpu().numpy()
+        target = int(probs.argmax())
+        original_pred = float(probs[target])
+        if not gates:
+            return target, original_pred, True
+        bl = bundle.probs(blur_fn(xb))[0].cpu().numpy()
+        blur_class = int(bl.argmax())
+        blur_own = float(bl[blur_class])
+        bk = bundle.probs(torch.zeros_like(xb))[0].cpu().numpy()
+        black_class = int(bk.argmax())
+        black_own = float(bk[black_class])
+        ok = not (blur_own >= original_pred or black_own >= original_pred
+                  or target == black_class or target == blur_class)
+        return target, original_pred, ok
 
 
 def image_generator(seed: int, index: int, device) -> torch.Generator:
@@ -156,16 +159,17 @@ def batch_attribute(bundle, family, attr_func, pend, dtype=None):
     seconds)."""
     t = time.time()
     targets = [p["target"] for p in pend]
-    sals = batch_attribution(
-        family, attr_func, bundle, torch.stack([p["x"] for p in pend]),
-        np.stack([p["trans_img"] for p in pend]), targets,
-        [p["generator"] for p in pend], img_hw=bundle.meta.img_hw,
-        dtype=dtype, extras=(batch_extras(bundle, targets)
-                             if family == "clip" else None))
-    if sals is None:
-        sals = np.stack([get_attribution(family, attr_func,
-                                         attr_context(bundle, p, dtype))
-                         for p in pend])
+    with span("attribution"):
+        sals = batch_attribution(
+            family, attr_func, bundle, torch.stack([p["x"] for p in pend]),
+            np.stack([p["trans_img"] for p in pend]), targets,
+            [p["generator"] for p in pend], img_hw=bundle.meta.img_hw,
+            dtype=dtype, extras=(batch_extras(bundle, targets)
+                                 if family == "clip" else None))
+        if sals is None:
+            sals = np.stack([get_attribution(family, attr_func,
+                                             attr_context(bundle, p, dtype))
+                             for p in pend])
     # returns host numpy, so the device work is done
     return sals, time.time() - t
 

@@ -24,7 +24,8 @@ one batched attribution (``methods/batch.py``) and one batched battery
 :func:`battery_mesh` (one card: the whole batch on it); rise and xrai,
 which have no batched form, attribute the batch's images one by one
 through the registry, and a partial last batch goes image by image with
-its stored targets.
+its stored targets.  Both paths go through :func:`kept_step`, the public
+step over kept images.
 ``--attr_dtype bf16`` runs the attribution sweeps on a bf16 copy of the
 model, on both paths for a CNN and on the batched path for a ViT or CLIP;
 image by image, only TIS, VIT_CX, MDA and MDA_dense among the ViT and
@@ -70,6 +71,7 @@ from ..parallel import multi_host
 from ..parallel.mesh import Mesh, canonical_device, make_mesh
 from ..parallel.sharded_battery import sharded_battery_scores
 from ..registry import get_attribution
+from ..utils.trace import span
 from .common import (ATTR_DTYPES, attr_context, batch_attribute,
                      build_bundle, default_blur, image_gates,
                      image_generator, model_entry, normalize_input,
@@ -103,18 +105,41 @@ def _accumulate(result, scores) -> None:
         result[k] = result.get(k, 0.0) + v
 
 
+def kept_step(bundle, family, pend, blur, attr_func, dtype=None,
+              mesh=None):
+    """The driver's step over kept images ``pend`` (dicts with ``x``,
+    ``trans_img``, ``target`` and ``generator``), under the span ``step``:
+    one image through the registry and ``run_battery``; more through
+    ``batch_attribute`` and ``sharded_battery_scores`` on ``mesh``.
+    Returns (``[B, H, W]`` saliencies, one 10-score dict an image, the
+    attribution seconds); each part returns host numpy, so the step's
+    device work is done when it returns."""
+    with span("step"):
+        if len(pend) == 1:
+            p = pend[0]
+            t = time.time()
+            sals = get_attribution(family, attr_func,
+                                   attr_context(bundle, p, dtype))[None]
+            attr_dt = time.time() - t
+            scores = [run_battery(bundle.apply, p["x"], sals[0], blur,
+                                  chunk=45, target=p["target"])]
+        else:
+            sals, attr_dt = batch_attribute(bundle, family, attr_func, pend,
+                                            dtype)
+            scores = sharded_battery_scores(
+                bundle, torch.stack([p["x"] for p in pend]), sals, blur,
+                chunk=45, targets=[p["target"] for p in pend], mesh=mesh)
+        return sals, scores, attr_dt
+
+
 def _score_image(bundle, family, p, blur, result, args, maps=None):
     """Attribution and battery of one kept image, image by image.
     Returns (its scores, the attribution seconds)."""
-    t = time.time()
-    # returns host numpy, so the device work is done when it returns
-    saliency = get_attribution(family, args.attr_func, attr_context(
-        bundle, p, ATTR_DTYPES[args.attr_dtype]))
-    attr_dt = time.time() - t
+    sals, (scores,), attr_dt = kept_step(bundle, family, [p], blur,
+                                         args.attr_func,
+                                         ATTR_DTYPES[args.attr_dtype])
     if maps is not None:
-        maps.write(p, saliency)
-    scores = run_battery(bundle.apply, p["x"], saliency, blur, chunk=45,
-                         target=p["target"])
+        maps.write(p, sals[0])
     _accumulate(result, scores)
     return scores, attr_dt
 
@@ -149,14 +174,12 @@ def _flush_batch(bundle, family, pend, blur, result, args, mesh,
                  maps=None) -> float:
     """Batched attribution and batched battery for a full image batch, the
     battery sharded over ``mesh``.  Returns the attribution seconds."""
-    sals, attr_dt = batch_attribute(bundle, family, args.attr_func, pend,
-                                    ATTR_DTYPES[args.attr_dtype])
+    sals, all_scores, attr_dt = kept_step(bundle, family, pend, blur,
+                                          args.attr_func,
+                                          ATTR_DTYPES[args.attr_dtype], mesh)
     if maps is not None:
         for p, s in zip(pend, sals):
             maps.write(p, s)
-    all_scores = sharded_battery_scores(
-        bundle, torch.stack([p["x"] for p in pend]), sals, blur, chunk=45,
-        targets=[p["target"] for p in pend], mesh=mesh)
     for p, scores in zip(pend, all_scores):
         _accumulate(result, scores)
         if args.verbose:
