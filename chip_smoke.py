@@ -29,7 +29,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the batched reveal (reveal_batch) is checked bit-exact at
    [4, 45, 3, 224, 224], at a ragged B=3, S=7 on 3x15x13 (the scalar
    variant) and at B=1 against reveal_chunk, and timed at B=4 beside
-   torch.where over the batch and its bound;
+   torch.where over the batch and its bound; the ResNet epilogue
+   (bn_act) is checked bit-exact in its three forms at every R101 plane
+   size, ragged ones and a misaligned view, with NaN, infinities and signed
+   zeros, and on a whole R101 forward against the plain path (100
+   launches), then timed at each pass of a 180-row forward beside its
+   bytes bound, its plain version and addcmul + add_ + relu_;
 4. drive the main paths through their entry point,
    evaluate_perturbation --model R101 at 224 px with seeded random
    weights, launch counters zeroed just before each and read just after:
@@ -301,10 +306,62 @@ def card_line() -> str:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper by name; each counts its launches."""
     from xai_tpu_torch.kernels.blur import blur_planes
+    from xai_tpu_torch.kernels.bn_act import bn_act
     from xai_tpu_torch.kernels.quickshift import quickshift_parents
     from xai_tpu_torch.kernels.reveal import reveal_batch
     return {"blur_planes": blur_planes, "reveal_batch": reveal_batch,
-            "quickshift_parents": quickshift_parents}
+            "quickshift_parents": quickshift_parents, "bn_act": bn_act}
+
+
+class FusedEpilogues:
+    """The bn_act launches that a path's ResNet forwards should make,
+    counted by a global forward pre-hook at each module's input, the
+    input that ``models/resnet.py`` dispatches on: one for a ResNet's
+    stem and three for a bottleneck, where no autograd graph is recorded,
+    the input is a contiguous CUDA float32 tensor and the module's
+    activation is ``F.relu``.  Each path's expected bn_act count is this
+    one, zeroed with the kernel counters: R101 100 a fused forward, 0
+    where no ResNet runs and in the forwards that record a graph.  A
+    channels-last view (LIME's samples, for one: a permuted NHWC stack)
+    keeps the stem's separate ops, and its blocks fuse only where the
+    stem's output comes out contiguous."""
+
+    def __init__(self):
+        import threading
+
+        import torch
+        import torch.nn.functional as F
+        from torch.nn.modules.module import register_module_forward_pre_hook
+
+        from xai_tpu_torch.models.resnet import Bottleneck, ResNet
+
+        self.launches = 0
+        lock = threading.Lock()     # a mesh battery's shards run in threads
+
+        def pre_hook(module, args):
+            passes = (1 if isinstance(module, ResNet) else
+                      3 if isinstance(module, Bottleneck) else 0)
+            if not passes or not args:
+                return
+            x = args[0]
+            if (module.relu is F.relu and not torch.is_grad_enabled()
+                    and x.is_cuda and x.dtype == torch.float32
+                    and x.is_contiguous()):
+                with lock:
+                    self.launches += passes
+
+        register_module_forward_pre_hook(pre_hook)
+
+
+_EPILOGUES = []
+
+
+def fused_epilogues() -> FusedEpilogues:
+    """This process's one FusedEpilogues, its hook installed at the first
+    call."""
+    if not _EPILOGUES:
+        _EPILOGUES.append(FusedEpilogues())
+    return _EPILOGUES[0]
 
 
 def check_kernels(torch, dev, x_hwc):
@@ -626,6 +683,185 @@ def check_quickshift(torch, dev):
     return row
 
 
+def special_values(torch, t, gen, share: float = 0.01):
+    """``t`` with about ``share`` of its elements set, each at random, to
+    NaN, +0, -0, +inf or -inf (in place; returned)."""
+    flat = t.view(-1)
+    picks = torch.rand(flat.shape, device=t.device, generator=gen) < share
+    which = torch.randint(0, 5, flat.shape, device=t.device, generator=gen)
+    values = torch.tensor([math.nan, 0.0, -0.0, math.inf, -math.inf],
+                          device=t.device)
+    flat[picks] = values[which[picks]]
+    return t
+
+
+def bits_equal(torch, got, want) -> bool:
+    """Bit for bit: NaN equal to NaN, +0 unequal to -0."""
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got.view(torch.int32), want.view(torch.int32)))
+
+
+def check_bn_act(torch, dev):
+    """Phase 3, the ResNet epilogue: bit-exact against its plain version
+    in its three forms at every R101 plane size, ragged ones and a
+    misaligned view, NaN, infinities and signed zeros among the inputs; a
+    whole R101 forward on the fused path equal to the plain path, 100
+    launches; then each distinct epilogue of a 180-row forward (the
+    battery's at --image_batch 4) timed beside its bytes bound, the plain
+    version and the fewest PyTorch calls (addcmul, add_, relu_), summed
+    over the forward's 100 passes.  Inputs rotate through copies that
+    together exceed the 50 MB L2, so no pass finds its input there."""
+    import copy
+    import itertools
+
+    import torch.nn.functional as F
+
+    from xai_tpu_torch.kernels import bn_act as kb
+    from xai_tpu_torch.kernels.bounds import bn_act_bound_ms
+    from xai_tpu_torch.models import resnet
+
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def operands(n, c, h, w, residual, residual_bn, special=True):
+        def rand(*shape):
+            t = torch.randn(*shape, device=dev, generator=gen)
+            return special_values(torch, t, gen) if special else t
+        args = [rand(n, c, h, w), rand(c), rand(c)]
+        if residual:
+            args.append(rand(n, c, h, w))
+        if residual_bn:
+            args += [rand(c), rand(c)]
+        return args
+
+    forms = [(False, False), (True, False), (True, True)]
+    # R101's planes (7x7 straddles channels within a quad), then the
+    # scalar variant's: an odd element count, a plane under 4 elements
+    cases = [(3, 24, hw, hw) for hw in (112, 56, 28, 14, 7)] + [
+        (3, 24, 13, 11), (2, 5, 13, 11), (2, 3, 7, 7), (1, 3, 1, 3)]
+    for n, c, h, w in cases:
+        for form in forms:
+            args = operands(n, c, h, w, *form)
+            before = kb.bn_act.launches
+            got = kb.bn_act(*args)
+            if kb.bn_act.launches - before != 1:
+                fail("bn_act launched more or fewer than one kernel")
+            if not bits_equal(torch, got, kb.bn_act_plain(*args)):
+                fail(f"bn_act disagrees with its plain version at "
+                     f"{[n, c, h, w]}, residual / its BN {form}")
+    # a contiguous view 4 bytes off a 16-byte boundary: the scalar variant
+    buf = torch.randn(3 * 24 * 56 * 56 + 1, device=dev, generator=gen)
+    x = special_values(torch, buf[1:], gen).view(3, 24, 56, 56)
+    for form in forms:
+        args = [x] + operands(3, 24, 56, 56, *form)[1:]
+        if not bits_equal(torch, kb.bn_act(*args), kb.bn_act_plain(*args)):
+            fail(f"bn_act disagrees with its plain version on a "
+                 f"misaligned view, residual / its BN {form}")
+    print("bn_act: bit-exact against the plain version, forms relu, "
+          "+ residual, + residual through its BN, at "
+          + ", ".join(f"{list(s)}" for s in cases)
+          + " and a misaligned [3, 24, 56, 56]; ~1 % NaN, +-0, +-inf")
+
+    # a whole R101 forward, FoldedBN drawn at random: the fused path
+    # against the plain one (the same F.relu arithmetic behind another
+    # function object, so every module takes its plain code); each pass's
+    # (c, h, w, residual, residual BN), in order, for the timings below
+    model = resnet.make_model("resnet101").to(dev)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, resnet.FoldedBN):
+                m.scale.copy_(1 + 0.2 * torch.randn(
+                    m.scale.shape, device=dev, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(
+                    m.bias.shape, device=dev, generator=gen))
+    plain_model = resnet.set_relu(copy.deepcopy(model),
+                                  lambda t: F.relu(t))
+    x = torch.randn(8, 3, 224, 224, device=dev, generator=gen)
+    passes = []
+
+    def spy(y, scale, bias, *rest):
+        passes.append((*y.shape[1:], len(rest) > 0, len(rest) > 1))
+        return kb.bn_act(y, scale, bias, *rest)
+
+    with torch.inference_mode():
+        before = kb.bn_act.launches
+        resnet.bn_act = spy
+        try:
+            got, got_taps = model(x, taps=True)
+        finally:
+            resnet.bn_act = kb.bn_act
+        launches = kb.bn_act.launches - before
+        want, want_taps = plain_model(x, taps=True)
+        if kb.bn_act.launches - before != launches:
+            fail("the plain R101 forward launched bn_act")
+    if launches != 100 or len(passes) != 100:
+        fail(f"a fused R101 forward launched bn_act {launches} times, "
+             f"not 100")
+    if not (bits_equal(torch, got, want) and all(
+            bits_equal(torch, got_taps[k], want_taps[k]) for k in want_taps)):
+        fail("the fused R101 forward differs from the plain one")
+    del model, plain_model
+    print("bn_act: a fused R101 forward at [8, 3, 224, 224] (100 "
+          "launches) equals the plain forward, logits and every tap")
+
+    def library(x, s, b, r=None, sd=None, bd=None):
+        y = torch.addcmul(b[:, None, None], x, s[:, None, None])
+        if r is not None:
+            y.add_(r if sd is None else torch.addcmul(
+                bd[:, None, None], r, sd[:, None, None]))
+        return y.relu_()
+
+    def timed(fn, sets):
+        cycle = itertools.cycle(sets)
+        return device_ms(torch, lambda: fn(*next(cycle)))
+
+    by_shape = []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0, "ms_45": 0.0, "bound_ms_45": 0.0}
+    for shape in sorted(set(passes), key=passes.index):
+        count = passes.count(shape)
+        c, h, w, residual, residual_bn = shape
+        row = {"shape": [180, c, h, w], "residual": residual,
+               "residual_bn": residual_bn, "count": count}
+        for n, key in ((180, ""), (45, "_45")):
+            one = sum(t.numel() * 4 for t in operands(
+                n, c, h, w, residual, residual_bn, special=False))
+            sets = [operands(n, c, h, w, residual, residual_bn,
+                             special=False)
+                    for _ in range(max(1, -(-120_000_000 // one)))]
+            if n == 180:
+                if not bits_equal(torch, kb.bn_act(*sets[0]),
+                                  kb.bn_act_plain(*sets[0])):
+                    fail(f"bn_act disagrees with its plain version at "
+                         f"{row['shape']}")
+                row["plain_ms"] = timed(kb.bn_act_plain, sets)
+                row["library_ms"] = timed(library, sets)
+            row["ms" + key] = timed(kb.bn_act, sets)
+            row["bound_ms" + key] = bn_act_bound_ms(n, c, h, w, residual,
+                                                    residual_bn)
+            del sets
+        for k in totals:
+            totals[k] += count * row[k]
+        by_shape.append(row)
+        print(f"bn_act {row['shape']} residual {residual} its BN "
+              f"{residual_bn} (x{count}): kernel {row['ms'] * 1e3:.2f} us, "
+              f"bound {row['bound_ms'] * 1e3:.2f} us "
+              f"({row['bound_ms'] / row['ms']:.1%}), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library "
+              f"{row['library_ms'] * 1e3:.2f} us")
+    print(f"bn_act over one R101 forward's 100 passes at 180 rows: kernel "
+          f"{totals['ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
+          f"({totals['bound_ms'] / totals['ms']:.1%}), plain "
+          f"{totals['plain_ms']:.4f} ms, library "
+          f"{totals['library_ms']:.4f} ms; at 45 rows kernel "
+          f"{totals['ms_45']:.4f} ms, bound {totals['bound_ms_45']:.4f} ms "
+          f"({totals['bound_ms_45'] / totals['ms_45']:.1%})")
+    return dict(name="bn_act", route="cuda",
+                source="xai_tpu_torch/csrc/bn_act.cu",
+                replaces="none: XLA fused these passes on the TPU",
+                max_abs_err=0.0, bound_by="bytes", by_shape=by_shape,
+                **totals)
+
+
 # the driver paths of phase 4: (label, flags, images in the stream,
 # --image_count, --image_batch).  Random weights usually give noise images
 # one class, so a batched path's --image_count is 1000x its images: the
@@ -653,6 +889,8 @@ MAIN_PATHS.append(("shap_b4_bf16", ["--attr_func", "shap", "--attr_dtype",
 # 3 passes of ceil(225 / 45) = 5 reveal chunks at 224 px: 224 steps of 224
 # pixels, plus step 0
 REVEAL_PER_BATTERY = 3 * math.ceil((224 * 224 // 224 + 1) / 45)
+# bn_act launches a fused R101 forward: the stem and 3 x 33 bottlenecks
+R101_EPILOGUES = 1 + 3 * (3 + 4 + 23 + 3)
 
 
 def synthetic_classes(torch, dev, n: int) -> list:
@@ -700,6 +938,8 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    epilogues = fused_epilogues()
+    epilogues.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         ep.evaluate_perturbation(args, device=dev)
@@ -733,7 +973,7 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     batteries = flushes * (ep.battery_mesh(dev, batch).shape["data"]
                            if batch > 1 else 1)
     if want is not None:
-        want = want()
+        want = dict(want(), bn_act=epilogues.launches)
         if launches != want:
             fail(f"the {label} main path launched {launches}, expected "
                  f"{want}")
@@ -754,6 +994,14 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
         fail(f"quickshift kernel launched "
              f"{launches['quickshift_parents']} times on the {label} "
              f"main path, expected {want_qs}")
+    # every battery chunk's forward (one a reveal launch) is a fused R101
+    # forward
+    if launches["bn_act"] != epilogues.launches or (
+            model == "R101" and launches["bn_act"]
+            < R101_EPILOGUES * launches["reveal_batch"]):
+        fail(f"bn_act launched {launches['bn_act']} times on the {label} "
+             f"main path, expected {epilogues.launches} (its forwards), "
+             f"at least {R101_EPILOGUES} a reveal launch on R101")
     print(f"{label} main path: {scored} of {n_images} images scored in "
           f"{flushes} {'flushes of ' + str(batch) if batch > 1 else 'runs'}"
           f", total {total:.3f} s, attribution "
@@ -1315,18 +1563,21 @@ def optional_packages() -> dict:
     return have
 
 
-NO_LAUNCHES = {"blur_planes": 0, "reveal_batch": 0, "quickshift_parents": 0}
+NO_LAUNCHES = {"blur_planes": 0, "reveal_batch": 0, "quickshift_parents": 0,
+               "bn_act": 0}
 
 
 def run_path(torch, label, fn, want):
     """Drive one path, every kernel counter zeroed just before and read
     just after; fails unless each kernel launched as ``want`` says (a
     dict, or a function that returns it once the path has run, for the
-    counts that the path's own choices set).  Returns (fn's result, the
-    launches)."""
+    counts that the path's own choices set); bn_act's expected count is
+    FusedEpilogues'.  Returns (fn's result, the launches)."""
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    epilogues = fused_epilogues()
+    epilogues.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
@@ -1337,6 +1588,7 @@ def run_path(torch, label, fn, want):
     print(log.getvalue(), end="")
     if callable(want):
         want = want()
+    want = dict(want, bn_act=epilogues.launches)
     if launches != want:
         fail(f"the {label} path launched {launches}, expected {want}")
     print(f"{label} path: {total:.3f} s, launches {json.dumps(launches)}")
@@ -3617,7 +3869,9 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
     counter zeroed just before a run and read just after, and prints one
     ``TWO_PROCESS {...}`` line: its rank, and for each run the dataset
     indices it attributed (its stripe), what the driver returned, its
-    launches and seconds (the sweep's stripe: the runs it took)."""
+    launches, the bn_act launches its forwards should make
+    (FusedEpilogues) and seconds (the sweep's stripe: the runs it
+    took)."""
     import torch
 
     from xai_tpu_torch.parallel import multi_host
@@ -3629,6 +3883,7 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
           f"{torch.cuda.device_count()}", flush=True)
     dev = resolve_device(device)
     wrappers = kernel_wrappers()
+    epilogues = fused_epilogues()
     out = {"rank": rank, "runs": {}}
     for label, driver, flags, _ in json.loads(runs):
         mod, entry = driver_entry(driver)
@@ -3647,6 +3902,7 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
             mod.image_generator = spy
         for w in wrappers.values():
             w.launches = 0
+        epilogues.launches = 0
         t0 = time.perf_counter()
         try:
             returned = entry(args, device=dev)
@@ -3660,6 +3916,7 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
         out["runs"][label] = {
             "stripe": sorted(set(stripe)), "returned": returned,
             "launches": {n: w.launches for n, w in wrappers.items()},
+            "want_bn_act": epilogues.launches,
             "seconds": time.perf_counter() - t0}
     out["seconds"] = time.perf_counter() - t_start
     print("TWO_PROCESS " + json.dumps(out), flush=True)
@@ -3747,10 +4004,15 @@ def check_two_processes(torch, dev, out_dir, by_path) -> dict:
                 total[n] += c
         summed = {n: sum(r["launches"][n] for r in runs)
                   for n in NO_LAUNCHES}
-        if summed != by_path[single]:
+        # bn_act launches as its forwards say: each process may run
+        # forwards of its own beside its stripe's
+        want = dict(by_path[single],
+                    bn_act=sum(r["want_bn_act"] for r in runs))
+        if summed != want:
             fail(f"two-process {label}: the processes launched "
                  f"{[r['launches'] for r in runs]}, summed {summed}; the "
-                 f"single-process run {by_path[single]}")
+                 f"single-process run {by_path[single]}, bn_act "
+                 f"{want['bn_act']} by their forwards")
         if runs[0]["returned"] != runs[1]["returned"] and driver != "sweep":
             fail(f"two-process {label}: the processes returned "
                  f"{runs[0]['returned']} and {runs[1]['returned']}")
@@ -3934,6 +4196,7 @@ def check_device_guard(torch) -> None:
               "launch on another card keeps the current device")
         return
     from xai_tpu_torch.kernels.blur import blur_planes
+    from xai_tpu_torch.kernels.bn_act import bn_act
     from xai_tpu_torch.kernels.quickshift import quickshift_parents
     from xai_tpu_torch.kernels.reveal import reveal_batch
 
@@ -3948,7 +4211,9 @@ def check_device_guard(torch) -> None:
         "reveal_batch": lambda: reveal_batch(x, x * 0, flip, steps),
         "quickshift_parents": lambda: quickshift_parents(
             x.permute(0, 2, 3, 1).contiguous(), 0.5 / 36, 36.0, 0.5, w=6,
-            wd=4)}
+            wd=4),
+        "bn_act": lambda: bn_act(x, x[0, :, 0, 0].contiguous(),
+                                 x[1, :, 0, 0].contiguous(), x)}
     before = torch.cuda.current_device()
     for name, launch in launches.items():
         launch()
@@ -4169,7 +4434,9 @@ def check_mesh(torch, dev, out_dir, card) -> dict:
 WALK_RUNNER = r"""
 import json, runpy, sys, time
 import torch
-from xai_tpu_torch.kernels import blur, quickshift, reveal
+import chip_smoke
+from xai_tpu_torch.kernels import blur, bn_act, quickshift, reveal
+epilogues = chip_smoke.fused_epilogues()
 module, *argv = sys.argv[1:]
 sys.argv = [module, *argv]
 t0 = time.perf_counter()
@@ -4181,7 +4448,9 @@ print("WALKTHROUGH " + json.dumps({
     "launches": {"blur_planes": blur.blur_planes.launches,
                  "reveal_batch": reveal.reveal_batch.launches,
                  "quickshift_parents":
-                     quickshift.quickshift_parents.launches}}))
+                     quickshift.quickshift_parents.launches,
+                 "bn_act": bn_act.bn_act.launches},
+    "want_bn_act": epilogues.launches}))
 """
 WALK_TIMEOUT_S = 300
 # MDA's rescoring (methods/mda.py find_deletion_patches): an insertion and
@@ -4260,7 +4529,8 @@ def drive_walkthroughs(torch, dev, out_dir, card) -> dict:
     walkthrough at full width on the JPEG through its module's main, as
     `python -m` runs it, in a process of its own (WALK_RUNNER).  Each must
     exit 0, print its maps' or scores' lines with finite numbers and
-    launch each kernel as walkthroughs() says.  Returns the launches by
+    launch each kernel as walkthroughs() says (bn_act as FusedEpilogues
+    counts its forwards).  Returns the launches by
     path."""
     here = os.path.dirname(os.path.abspath(__file__))
     jpg, png = write_walk_images(out_dir)
@@ -4289,6 +4559,7 @@ def drive_walkthroughs(torch, dev, out_dir, card) -> dict:
                 v and all(math.isfinite(x) for x in v) for v in nums):
             fail(f"{label}: {len(nums)} lines with {marker!r} ({lines} "
                  f"expected) or a number not finite: {nums}")
+        want = dict(want, bn_act=rec["want_bn_act"])
         if rec["launches"] != want:
             fail(f"the {label} path launched {rec['launches']}, expected "
                  f"{want}")
@@ -4423,6 +4694,7 @@ def main() -> None:
     with timed_phase(phases, "3 kernels"):
         rows = check_kernels(torch, dev, x_hwc)
         rows.append(check_quickshift(torch, dev))
+        rows.append(check_bn_act(torch, dev))
 
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:

@@ -66,3 +66,20 @@ def test_batched_reveal_bound():
     # the steps are read once for all images, not once an image
     assert four == pytest.approx(4 * one - 3 * 45 * 4 /
                                  kb.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+
+
+def test_bn_act_bound_counts_each_byte_once():
+    """The epilogue of the stem at the battery's 180 rows: 578.0 MB read
+    and as much written, 345.09 us at 3.35 TB/s; a residual adds a third
+    pass of bytes, a residual BN two more channel vectors."""
+    stem = 180 * 64 * 112 * 112 * 4
+    assert kb.bn_act_bound_ms(180, 64, 112, 112) == pytest.approx(
+        (2 * stem + 2 * 64 * 4) / kb.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert kb.bn_act_bound_ms(180, 64, 112, 112) * 1e3 == pytest.approx(
+        345.09, abs=5e-3)
+    one = 180 * 2048 * 7 * 7 * 4
+    assert kb.bn_act_bound_ms(180, 2048, 7, 7, residual=True) == (
+        pytest.approx((3 * one + 2 * 2048 * 4) / kb.HBM_BYTES_PER_S * 1e3))
+    assert kb.bn_act_bound_ms(180, 2048, 7, 7, True, True) == pytest.approx(
+        (3 * one + 4 * 2048 * 4) / kb.HBM_BYTES_PER_S * 1e3)
+

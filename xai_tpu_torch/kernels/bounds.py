@@ -76,3 +76,16 @@ def reveal_bound_ms(s: int, c: int, h: int, w: int, b: int = 1) -> float:
     steps read once, the [b, S, c, h, w] batch written once."""
     nbytes = b * (s * c * h * w + 2 * c * h * w + h * w) * 4 + s * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bn_act_bound_ms(n: int, c: int, h: int, w: int, residual: bool = False,
+                    residual_bn: bool = False) -> float:
+    """Bound ms of one ResNet epilogue pass (``kernels/bn_act.py``) over
+    an [n, c, h, w] float32 convolution output (bytes): the output and,
+    with ``residual``, the residual read once, the result written once,
+    and the per-channel scale and bias (two more with ``residual_bn``)
+    read once."""
+    nbytes = (3 if residual else 2) * n * c * h * w * 4 + (
+        4 if residual_bn else 2) * c * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+

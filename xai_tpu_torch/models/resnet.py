@@ -6,7 +6,11 @@ follow the JAX parameter tree (``conv1``, ``bn1``, ``layerN[b]``,
 is a renaming plus a layout transpose.
 
 Inference BatchNorm is folded into a per-channel ``x * scale + bias``
-(``FoldedBN``), exactly as the JAX model stores it.
+(``FoldedBN``), exactly as the JAX model stores it.  A forward that
+records no autograd graph, on a contiguous CUDA float32 input with
+``F.relu`` as its activation, runs each convolution's epilogue (FoldedBN,
+the residual with its downsample FoldedBN, ReLU) as one pass of
+``kernels/bn_act.py``, bit-exact with the separate ops it replaces.
 """
 from __future__ import annotations
 
@@ -16,12 +20,40 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.bn_act import bn_act
+from ..utils import trace
 from .common import FoldedBN, ModelBundle, ModelMeta, lecun_init_
 
 
 def _conv(cin, cout, k, stride=1, padding=0, groups=1):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
                      groups=groups, bias=False)
+
+
+def _fused(x: torch.Tensor, relu: Callable) -> bool:
+    """Whether a module's forward on ``x`` takes the fused epilogue: no
+    autograd graph is recorded (the kernel has no backward), ``x`` is a
+    contiguous CUDA float32 tensor (so is every convolution's output
+    after it), and the activation is ``F.relu`` (guided backprop's rule
+    is not)."""
+    return (relu is F.relu and not torch.is_grad_enabled() and x.is_cuda
+            and x.dtype == torch.float32 and x.is_contiguous())
+
+
+def _epilogue(fused: bool, relu: Callable, y: torch.Tensor, bn: FoldedBN,
+              residual: Optional[torch.Tensor] = None,
+              residual_bn: Optional[FoldedBN] = None) -> torch.Tensor:
+    """``relu(bn(y) [+ residual_bn(residual), or + residual])``: one
+    ``bn_act`` pass where ``fused``, else the separate ops."""
+    if fused:
+        rest = () if residual is None else (residual,)
+        if residual_bn is not None:
+            rest += (residual_bn.scale, residual_bn.bias)
+        return bn_act(y, bn.scale, bn.bias, *rest)
+    y = bn(y)
+    if residual is not None:
+        y = y + (residual if residual_bn is None else residual_bn(residual))
+    return relu(y)
 
 
 class Bottleneck(nn.Module):
@@ -46,13 +78,13 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FoldedBN(out_features)
 
     def forward(self, x):
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x
-        if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
-        return self.relu(y + residual)
+        fused = _fused(x, self.relu)
+        y = _epilogue(fused, self.relu, self.conv1(x), self.bn1)
+        y = _epilogue(fused, self.relu, self.conv2(y), self.bn2)
+        if self.downsample_conv is None:
+            return _epilogue(fused, self.relu, self.conv3(y), self.bn3, x)
+        return _epilogue(fused, self.relu, self.conv3(y), self.bn3,
+                         self.downsample_conv(x), self.downsample_bn)
 
 
 class ResNet(nn.Module):
@@ -94,7 +126,11 @@ class ResNet(nn.Module):
         the gradient with respect to a probe is the gradient with respect
         to that activation."""
         tap = {}
-        y = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        fused = _fused(x, self.relu)
+        if fused:
+            trace.count("bn_act_rows", x.shape[0])
+        y = self.maxpool(_epilogue(fused, self.relu, self.conv1(x),
+                                   self.bn1))
         for name in ("layer1", "layer2", "layer3", "layer4"):
             y = getattr(self, name)(y)
             if probes is not None and name in probes:
