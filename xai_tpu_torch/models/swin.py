@@ -15,6 +15,14 @@ shape at init; they are buffers kept out of the state dict.
 Submodule names follow the JAX parameter tree (``patch_embed``,
 ``stage{s}_block{b}.attn.qkv``, ``.attn.rel_bias_table``,
 ``merge{s}.reduction``, ``norm``, ``head``, ...).
+
+Every call of :class:`WindowAttention` adds its query rows, windows times
+tokens a window, to the counter ``window_attn_rows`` (``utils/trace.py``),
+and a call that carries a shift mask adds them to ``masked_window_rows``
+too: a Swin block's attention, shifted or not, and MaxViT's block and grid
+attention, which share the module (``models/maxvit.py``).  Swin-B at
+224 px counts 11,466 rows an image, 5,684 of them masked: the last stage's
+shift is dropped.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import trace
 from .common import (Conv2dSame, LayerNorm, ModelBundle, ModelMeta,
                      conv_nhwc, init_flax_default)
 
@@ -75,7 +84,9 @@ class WindowAttention(nn.Module):
     position bias, in the compute dtype: logits ``(q @ k^T) * scale``
     (the scale after the product), bias, optional mask, softmax, ``@ v``.
     ``scale`` None is head_dim ** -0.5 (Swin); MaxViT's torchvision form
-    passes feat_dim ** -0.5."""
+    passes feat_dim ** -0.5.  Each call counts its ``nW * N`` query rows
+    into ``window_attn_rows``, and into ``masked_window_rows`` where it
+    has a mask."""
 
     def __init__(self, dim: int, num_heads: int, window: int,
                  scale: Optional[float] = None):
@@ -94,6 +105,9 @@ class WindowAttention(nn.Module):
         """x: ``[nW, N, C]`` windows; mask: ``[nm, N, N]`` or None."""
         nw, n, c = x.shape
         h = self.num_heads
+        trace.count("window_attn_rows", nw * n)
+        if mask is not None:
+            trace.count("masked_window_rows", nw * n)
         qkv = self.qkv(x).view(nw, n, 3, h, c // h)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         attn = (q @ k.transpose(-2, -1)) * self.scale

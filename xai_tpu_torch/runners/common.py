@@ -2,6 +2,13 @@
 per-image gates and generators, the registry context and the batched
 attribution of kept images, result CSV writing.
 
+A CLI name is one of the drivers' table (``MODEL_TABLE``, xai_tpu's), or
+else any other name of the extended zoo (``models/__init__.py
+EXTENDED_ZOO``: ``swin_base``, ``CONVNXT``, ``MAXVIT``, ...), which falls
+through to ``models.get_bundle`` as in the image finder; its family and
+batch size are those of its bundle's meta.  xai_tpu's drivers raise on
+the zoo's names.
+
 Counterpart of ``xai_tpu/runners/common.py``.  Entry points run on CUDA
 unless the caller passes ``device="cpu"``; with no device and no CUDA they
 raise rather than carry on on the CPU.
@@ -18,7 +25,7 @@ import torch
 
 from ..convert.from_jax import load_params
 from ..methods.batch import batch_attribution
-from ..models import clip, resnet, vit
+from ..models import EXTENDED_ZOO, clip, get_bundle, resnet, vit
 from ..models.clip import batch_extras, clip_extras
 from ..models.common import ModelBundle, ModelMeta
 from ..ops.blur import make_blur_fn
@@ -42,6 +49,9 @@ MODEL_TABLE = {
     "TINY_CNN": ("cnn", 50), "TINY_R": ("cnn", 50), "TINY_VIT": ("vit", 25),
 }
 
+# the zoo's names that the drivers' table lacks: each is models.get_bundle's
+ZOO_ONLY = frozenset(EXTENDED_ZOO) - frozenset(MODEL_TABLE)
+
 # each family's input normalization (xai_tpu's family_stats)
 FAMILY_STATS = {"cnn": (IMAGENET_MEAN, IMAGENET_STD),
                 "vit": (VIT_MEAN, VIT_STD),
@@ -49,8 +59,14 @@ FAMILY_STATS = {"cnn": (IMAGENET_MEAN, IMAGENET_STD),
 
 
 def model_entry(model_name: str):
-    """(family, batch size) of a CLI model name."""
-    return MODEL_TABLE[model_name]
+    """(family, batch size) of a CLI model name: its ``MODEL_TABLE`` row,
+    or for another zoo name its bundle's meta, read from the bundle built
+    on the meta device (no weights are made)."""
+    if model_name not in ZOO_ONLY:
+        return MODEL_TABLE[model_name]
+    with torch.device("meta"):
+        meta = get_bundle(model_name, device="meta").meta
+    return meta.family, meta.batch_size
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,13 +85,16 @@ def resolve_device(device=None) -> torch.device:
 
 def build_bundle(model_name: str, params_path: Optional[str] = None,
                  seed: int = 0, device=None) -> ModelBundle:
-    """The bundle for a reference CLI model name.  Weights come from an
+    """The bundle for a CLI model name.  Weights come from an
     ``xai_tpu``-saved ``.npz`` if given, else a seeded random init.  A
     CLIP bundle gets the class-prompt text table of its own text tower,
-    built after the weights are in (xai_tpu's ``build_bundle``)."""
+    built after the weights are in (xai_tpu's ``build_bundle``).  A zoo
+    name outside ``MODEL_TABLE`` is ``models.get_bundle``'s."""
     device = resolve_device(device)
-    family, batch = model_entry(model_name)
     state = load_params(params_path) if params_path else None
+    if model_name in ZOO_ONLY:
+        return get_bundle(model_name, state, seed, device)
+    family, batch = model_entry(model_name)
     if family == "clip":
         return clip.make_bundle(model_name, state, seed, batch, device)
     if family == "vit":

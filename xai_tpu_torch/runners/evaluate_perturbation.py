@@ -51,7 +51,9 @@ lime, gig, agi, gc, gbp, ggc, gs, fa, occ, shap, rise, xrai; or
 rollout, t_attn, attn_ig, attn_attr, bi_attn, InFlow, t_attr, TIS,
 VIT_CX, MDA, MDA_dense; or ``--model CLIP16`` / ``CLIP32`` with eclip,
 eclip_nograd, eclip_wo, maskclip, grad_cam, selfattn, game, rollout,
-lrp, m2ib, surgery, rise; add
+lrp, m2ib, surgery, rise; or any other name of the extended zoo, such
+as ``--model swin_base --attr_func ig``, which takes the family of its
+bundle's meta (``runners/common.py``); add
 ``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations
@@ -288,7 +290,7 @@ def build_parser():
     p.add_argument("--image_count", type=int, default=1000)
     p.add_argument("--model", type=str, default="R101",
                    help="R50, R101, R152, RNXT, VIT16, VIT32, CLIP16, "
-                        "CLIP32")
+                        "CLIP32, or another zoo name (swin_base, ...)")
     p.add_argument("--attr_func", type=str, default="ig")
     p.add_argument("--cuda_num", type=int, default=0,
                    help="CUDA device index")

@@ -24,26 +24,18 @@ import argparse
 import numpy as np
 import torch
 
-from ..convert.from_jax import load_params
 from ..data.classmaps import load_ground_truth, save_correct_mask
 from ..data.imagenet import ImageNetValStream
-from ..models import get_bundle
-from .common import (MODEL_TABLE, build_bundle, model_entry,
-                     normalize_input, predict_classes, resolve_device)
+from .common import (build_bundle, normalize_input, predict_classes,
+                     resolve_device)
 
 
 def find_correctly_classified(args, device=None) -> np.ndarray:
     """Write ``correctly_classified_<model>.txt``; returns the mask.
     ``device`` defaults to ``cuda:<--cuda_num>``."""
     device = resolve_device(device or f"cuda:{args.cuda_num}")
-    if args.model in MODEL_TABLE:
-        family, _ = model_entry(args.model)
-        bundle = build_bundle(args.model, args.params_path, device=device)
-    else:
-        # the extended zoo (the reference's image finder model choices)
-        state = load_params(args.params_path) if args.params_path else None
-        bundle = get_bundle(args.model, state, device=device)
-        family = bundle.meta.family
+    bundle = build_bundle(args.model, args.params_path, device=device)
+    family = bundle.meta.family
     gnd = load_ground_truth(args.ground_truth)
     n_total = args.total or len(gnd)
     mask = np.zeros(n_total, np.int64)

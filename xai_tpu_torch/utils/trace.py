@@ -28,7 +28,11 @@ thousands of events a step.
 Counters are always on: :func:`count` adds to one under a lock, safely
 from any thread.  ``model_rows`` counts the rows of every forward that
 enters a model at its input: the ``ModelBundle`` entries, and the
-methods that run the module themselves.  A kernel wrapper counts its
+methods that run the module themselves.  ``window_attn_rows`` counts the
+query rows of windowed attention (``models/swin.py WindowAttention``:
+windows times tokens a window, in Swin's blocks and MaxViT's block and
+grid layers), and ``masked_window_rows`` those of the calls that carry a
+shift mask (Swin's shifted blocks).  A kernel wrapper counts its
 launches in its own ``.launches`` attribute, under the same lock
 (:func:`count_launches`).
 """
