@@ -27,14 +27,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    [2, 203, 97] and [12, 224, 224], klen 103 timed beside its bound and
    F.conv2d;
    the batched reveal (reveal_batch) is checked bit-exact at
-   [4, 45, 3, 224, 224], at a ragged B=3, S=7 on 3x15x13 (the scalar
-   variant) and at B=1 against reveal_chunk, and timed at B=4 beside
-   torch.where over the batch and its bound; the ResNet epilogue
+   [4, 45, 3, 224, 224], at the battery's launches [3, 45, 3, 224, 224]
+   (image by image) and [12, 45, 3, 224, 224] (B=4), at a ragged B=3,
+   S=7 on 3x15x13 (the scalar variant) and at B=1 against reveal_chunk,
+   and timed at B=4 and at the battery's two launches beside torch.where
+   over the batch and its bound; the ResNet epilogue
    (bn_act) is checked bit-exact in its three forms at every R101 plane
    size, ragged ones and a misaligned view, with NaN, infinities and signed
    zeros, and on a whole R101 forward against the plain path (100
-   launches), then timed at each pass of a 180-row forward beside its
-   bytes bound, its plain version and addcmul + add_ + relu_;
+   launches), then timed at each pass of a 180-row forward (B=4) beside
+   its bytes bound, its plain version and addcmul + add_ + relu_, and of
+   a 135-row one (image by image) beside its bound;
 4. drive the main paths through their entry point,
    evaluate_perturbation --model R101 at 224 px with seeded random
    weights, launch counters zeroed just before each and read just after:
@@ -49,9 +52,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    with --image_batch 4 --synthetic 4 --image_count 4000 in float32, and
    shap in bf16.  Each CSV must hold 10 finite scores; each battery (a
    scored image, or a flush of a batch) must launch blur once (>= once
-   image by image), reveal 3 passes * ceil(225 / 45) chunks = 15 times,
-   and quickshift once on a LIME path and never on another; a batched
-   path must score all its images in full batches; then the other
+   image by image), reveal ceil(225 / 45) = 5 times (a chunk's launch
+   holds all three passes) and run 5 battery forwards (the counter
+   battery_forwards) a battery of one image, 10 of two, 15 of four, and
+   at least 100 bn_act launches a battery forward on R101 (each a fused
+   R101 forward), and quickshift once on a
+   LIME path and never on another; a batched path must score all its
+   images in full batches; then the other
    drivers on R101, each through its entry point with its launches:
    sanity (ig, lime, ig at --image_batch 4 in bf16), segmentation (ig,
    gc at --image_batch 4), --save_maps image by image and at B=4 (the
@@ -59,7 +66,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    image finder against ground truth that makes its mask 1,0,1,0,...,
    the 16-name qualitative panel (no failed name; the PNG where
    matplotlib imports) and the sweep (6 rows ok, each pert row blur 1
-   and reveal 15 a scored image); sanity LIME's SPR and HOG may be NaN
+   and reveal 5 a scored image); sanity LIME's SPR and HOG may be NaN
    only where a map is constant, as xai_tpu's evaluate gives them;
    then the ViT family (ROADMAP A10 slice 1) on VIT16 at 224 px with
    seeded random weights: each of its 11 names (attn, grad, cam_attn,
@@ -67,14 +74,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    t_attr) image by image (--synthetic 2) and at --image_batch 4
    --synthetic 4 --image_count 4000 in float32, rollout, t_attr and
    bi_attn in bf16, rollout and t_attr (B=4) on VIT32 (each battery blur
-   1, reveal 15, quickshift 0); the sanity driver (rollout, t_attr at
+   1, reveal 5, quickshift 0); the sanity driver (rollout, t_attr at
    B=4 in bf16; SPR and HOG NaN only where a map is constant), the seg
    driver (rollout, t_attr at B=4), the image finder, the 11-name ViT
    panel (no name fails) and the sweep's ViT rows (pert, sanity, seg x
    rollout, t_attr); then the rest of the ViT family (ROADMAP A10 slice
    2) on VIT16: TIS, VIT_CX, MDA and MDA_dense on one image each in
    float32, TIS and VIT_CX in bf16, VIT_CX at --image_batch 4 in float32
-   and bf16 (MDA: the battery's 15 reveals and its rescoring's 18; blur
+   and bf16 (MDA: the battery's 5 reveals and its rescoring's 18; blur
    once a tried klen of its adaptive blur, twice above 63, the klen it
    stopped at printed), MDA on a copy of VIT16 with one class's head bias
    raised, where the adaptive blur must pass klen 63; MDA_dense through
@@ -88,7 +95,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    every noise image one class: --synthetic k, k the first image of a
    second class), the 11 batched ones at --image_batch 4 in float32,
    eclip, game and m2ib in bf16, and on CLIP32 eclip image by image and
-   lrp at B=4 (each battery blur 1, reveal 15, quickshift 0); the sanity
+   lrp at B=4 (each battery blur 1, reveal 5, quickshift 0); the sanity
    driver (eclip, rollout at B=4 in bf16), the seg driver (eclip,
    maskclip at B=4), the image finder, the 9-name CLIP panel (no name
    fails) and the sweep's CLIP16 rows (pert, sanity, seg x eclip,
@@ -170,7 +177,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    same flags, runtime rows aside; process 1 writes no result file; both
    return the same scores; the shared manifest holds both sweep runs ok;
    the two processes' launches add up to the single-process run's (blur
-   1, reveal 15 a scored R101 image, quickshift 0).  A worker that exits
+   1, reveal 5 a scored R101 image, quickshift 0).  A worker that exits
    non-zero or outlasts its timeout fails the run;
 8. the profiler: evaluate_perturbation's main with --profile_dir on one
    synthetic image of R101 ig, VIT16 rollout and CLIP16 eclip: each
@@ -193,12 +200,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    gradient is a rounding residue that Adam's first step magnifies),
    loss, scale and bias within 1e-4 of one device and both gradients
    (Adam's first moment) within 1e-3 of their size; the tensor-parallel
-   battery at B=2 over the 2x2 mesh (blur 2, reveal 30) within 2e-3 of
+   battery at B=2 over the 2x2 mesh (blur 2, reveal 10) within 2e-3 of
    the one-device battery.  R101: the battery at B=6 over a 4x1 mesh,
-   shards 2/2/1/1 (blur 4, reveal 60), within 2e-3 of one device, and
+   shards 2/2/1/1 (blur 4, reveal 20), within 2e-3 of one device, and
    evaluate_perturbation --attr_func ig --image_batch 4 --synthetic 4
    --image_count 4000 with its battery_mesh standing for that mesh
-   (blur 4, reveal 60), its CSV within 2e-3
+   (blur 4, reveal 20), its CSV within 2e-3
    of phase 4's one-card file.  Prints each warm step's time with CUDA
    events, mesh against one device (on a virtual mesh: overhead, not
    scaling).  Every earlier phase runs the driver's own mesh, which on a
@@ -210,7 +217,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    width with seeded random weights on the JPEG, each through its
    module's main as `python -m` runs it, in a process of its own:
    xai_tpu_torch.examples.cnn_example on R50 at 224 px (grad, IG-50,
-   LIG-50, IDG-50, each scored by the battery: blur 4, reveal 60),
+   LIG-50, IDG-50, each scored by the battery: blur 4, reveal 20),
    vit_example on VIT16 with --with_mda (five attention maps, MDA at 196
    patches from the bidirectional prior: blur 2, reveal 18 for its
    rescoring) and clip_example on CLIP16 (four maps, no kernel); each
@@ -481,11 +488,14 @@ def check_kernels(torch, dev, x_hwc):
           f"{row['library_ms_k103'] * 1e3:.2f} us, bound "
           f"{row['bound_ms_k103'] * 1e3:.3f} us ({row['bound_by_k103']})")
 
-    # --- reveal: one image (reveal_chunk, the B = 1 view): S=45 at 224 px
-    # (the per-image path), ragged S=1, and a plane size that is not a
-    # multiple of 4 (the scalar variant); a batch (reveal_batch):
-    # [4, 45, 3, 224, 224] (the batched path at --image_batch 4), a ragged
-    # B=3, S=7 at 3x15x13 (scalar), and B=1 against reveal_chunk ---
+    # --- reveal: one image (reveal_chunk, the B = 1 view): S=45 at 224 px,
+    # ragged S=1, and a plane size that is not a multiple of 4 (the
+    # scalar variant); a batch (reveal_batch): [4, 45, 3, 224, 224], the
+    # battery's launches (its three passes as 3B images: starts
+    # [blurred; x; x], finishes [x; 0; 0], flips [desc; desc; asc]) at
+    # [3, 45, 3, 224, 224] (image by image) and [12, 45, 3, 224, 224]
+    # (--image_batch 4), a ragged B=3, S=7 at 3x15x13 (scalar), and B=1
+    # against reveal_chunk ---
     rs = np.random.RandomState(0)
     finish = kblur.blur_planes(planes)
     flip = torch.from_numpy(pixel_flip_steps(rs.rand(224, 224), 224)
@@ -517,8 +527,19 @@ def check_kernels(torch, dev, x_hwc):
     finishes4 = kblur.blur_planes(starts4.view(12, 224, 224)).view(
         4, 3, 224, 224)
     flips4 = flips(4, 224, 224)
+
+    def passes(x, blurred, desc, asc):
+        zeros = torch.zeros_like(x)
+        return (torch.cat([blurred, x, x]), torch.cat([x, zeros, zeros]),
+                torch.cat([desc, desc, asc]))
+
+    battery3 = passes(planes[None], finish[None], flip[None],
+                      flips(1, 224, 224))
+    battery12 = passes(starts4, finishes4, flips4, flips(4, 224, 224))
     batch_cases = [
         (starts4, finishes4, flips4, steps45),
+        (*battery3, steps45),
+        (*battery12, steps45),
         (torch.rand(3, 3, 15, 13, device=dev),
          torch.zeros(3, 3, 15, 13, device=dev), flips(3, 15, 13),
          torch.tensor([0, 2, 3, 5, 8, 13, 15], dtype=torch.int32,
@@ -537,6 +558,7 @@ def check_kernels(torch, dev, x_hwc):
         fail("reveal_batch at B=1 differs from reveal_chunk")
     print("reveal_batch: bit-exact against the plain version (one image: "
           "S=45 and S=1 at 224 px, 3x15x13; batches: [4, 45, 3, 224, 224], "
+          "the battery's [3, 45, 3, 224, 224] and [12, 45, 3, 224, 224], "
           "B=3 S=7 at 3x15x13; B=1 equal to reveal_chunk)")
     s, (c, h, w) = steps45.shape[0], planes.shape
     rows.append(dict(
@@ -557,10 +579,20 @@ def check_kernels(torch, dev, x_hwc):
         plain_ms_b4=device_ms(torch, lambda: kreveal.reveal_batch_plain(
             starts4, finishes4, flips4, steps45)),
         bound_ms_b4=reveal_bound_ms(s, c, h, w, b=4)))
-    print(f"reveal_batch [4, 45, 3, 224, 224]: kernel "
-          f"{rows[-1]['ms_b4'] * 1e3:.2f} us, torch.where over the batch "
-          f"{rows[-1]['plain_ms_b4'] * 1e3:.2f} us, bound "
-          f"{rows[-1]['bound_ms_b4'] * 1e3:.2f} us (bytes)")
+    # the battery's launches: 5 a battery of one image, or of four
+    for b, case in ((3, battery3), (12, battery12)):
+        rows[-1].update({
+            f"ms_b{b}": device_ms(torch, lambda: kreveal.reveal_batch(
+                *case, steps45)),
+            f"plain_ms_b{b}": device_ms(
+                torch, lambda: kreveal.reveal_batch_plain(*case, steps45)),
+            f"bound_ms_b{b}": reveal_bound_ms(s, c, h, w, b=b)})
+    for b in (4, 3, 12):
+        print(f"reveal_batch [{b}, 45, 3, 224, 224]: kernel "
+              f"{rows[-1][f'ms_b{b}'] * 1e3:.2f} us, torch.where over the "
+              f"batch {rows[-1][f'plain_ms_b{b}'] * 1e3:.2f} us, bound "
+              f"{rows[-1][f'bound_ms_b{b}'] * 1e3:.2f} us (bytes, "
+              f"{rows[-1][f'bound_ms_b{b}'] / rows[-1][f'ms_b{b}']:.1%})")
     return rows
 
 
@@ -708,8 +740,9 @@ def check_bn_act(torch, dev):
     whole R101 forward on the fused path equal to the plain path, 100
     launches; then each distinct epilogue of a 180-row forward (the
     battery's at --image_batch 4) timed beside its bytes bound, the plain
-    version and the fewest PyTorch calls (addcmul, add_, relu_), summed
-    over the forward's 100 passes.  Inputs rotate through copies that
+    version and the fewest PyTorch calls (addcmul, add_, relu_), and of a
+    135-row one (image by image) beside its bound, summed over the
+    forward's 100 passes.  Inputs rotate through copies that
     together exceed the 50 MB L2, so no pass finds its input there."""
     import copy
     import itertools
@@ -816,13 +849,13 @@ def check_bn_act(torch, dev):
 
     by_shape = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0, "ms_45": 0.0, "bound_ms_45": 0.0}
+              "bound_ms": 0.0, "ms_135": 0.0, "bound_ms_135": 0.0}
     for shape in sorted(set(passes), key=passes.index):
         count = passes.count(shape)
         c, h, w, residual, residual_bn = shape
         row = {"shape": [180, c, h, w], "residual": residual,
                "residual_bn": residual_bn, "count": count}
-        for n, key in ((180, ""), (45, "_45")):
+        for n, key in ((180, ""), (135, "_135")):
             one = sum(t.numel() * 4 for t in operands(
                 n, c, h, w, residual, residual_bn, special=False))
             sets = [operands(n, c, h, w, residual, residual_bn,
@@ -852,9 +885,9 @@ def check_bn_act(torch, dev):
           f"{totals['ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
           f"({totals['bound_ms'] / totals['ms']:.1%}), plain "
           f"{totals['plain_ms']:.4f} ms, library "
-          f"{totals['library_ms']:.4f} ms; at 45 rows kernel "
-          f"{totals['ms_45']:.4f} ms, bound {totals['bound_ms_45']:.4f} ms "
-          f"({totals['bound_ms_45'] / totals['ms_45']:.1%})")
+          f"{totals['library_ms']:.4f} ms; at 135 rows kernel "
+          f"{totals['ms_135']:.4f} ms, bound {totals['bound_ms_135']:.4f} "
+          f"ms ({totals['bound_ms_135'] / totals['ms_135']:.1%})")
     return dict(name="bn_act", route="cuda",
                 source="xai_tpu_torch/csrc/bn_act.cu",
                 replaces="none: XLA fused these passes on the TPU",
@@ -886,11 +919,15 @@ MAIN_PATHS += [(f"{n}_b4", ["--attr_func", n], 4, 4000, 4)
                for n in A8_BATCHED]
 MAIN_PATHS.append(("shap_b4_bf16", ["--attr_func", "shap", "--attr_dtype",
                                     "bf16"], 4, 4000, 4))
-# 3 passes of ceil(225 / 45) = 5 reveal chunks at 224 px: 224 steps of 224
-# pixels, plus step 0
-REVEAL_PER_BATTERY = 3 * math.ceil((224 * 224 // 224 + 1) / 45)
+# ceil(225 / 45) = 5 reveal chunks at 224 px (224 steps of 224 pixels,
+# plus step 0), each one launch for all three passes
+REVEAL_PER_BATTERY = math.ceil((224 * 224 // 224 + 1) / 45)
 # bn_act launches a fused R101 forward: the stem and 3 x 33 bottlenecks
 R101_EPILOGUES = 1 + 3 * (3 + 4 + 23 + 3)
+# battery forwards a 224 px battery by its images (a data shard's), 5
+# chunks each: one 135-row forward of the three passes at one image, 180
+# + 90 rows at two, three of 180 (a pass each) at four
+BATTERY_FORWARDS = {1: 5, 2: 10, 4: 15}
 
 
 def synthetic_classes(torch, dev, n: int) -> list:
@@ -925,7 +962,9 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     ``want``: expected_launches()'s function, for a path whose own choices
     set its launches (MDA's adaptive blur and rescoring); the launches
     must then equal what it returns."""
+    from xai_tpu_torch.parallel.mesh import shard_slices
     from xai_tpu_torch.runners import evaluate_perturbation as ep
+    from xai_tpu_torch.utils import trace
 
     out_dir = os.path.join(out_dir, label)
     attr_func = flags[flags.index("--attr_func") + 1]
@@ -940,12 +979,14 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
         fn.launches = 0
     epilogues = fused_epilogues()
     epilogues.launches = 0
+    forwards = trace.counters().get("battery_forwards", 0)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         ep.evaluate_perturbation(args, device=dev)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    forwards = trace.counters().get("battery_forwards", 0) - forwards
     peak = torch.cuda.max_memory_allocated(dev)
     print(log.getvalue(), end="")
     # --verbose prints one line per scored image ("[i/n] ..." image by
@@ -965,7 +1006,7 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
         fail(f"expected 10 finite scores, got {scores}")
     # per battery (one scored image, or one flush of a batch): one blur
     # launch over all its planes (the synthetic stream skips the gates,
-    # which blur too) and 15 reveal launches; LIME segments its image(s)
+    # which blur too) and 5 reveal launches; LIME segments its image(s)
     # in one quickshift launch
     flushes = scored // batch
     # a flush runs one battery a data shard of the driver's mesh (one card:
@@ -990,24 +1031,35 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     if launches["reveal_batch"] != want_reveal:
         fail(f"reveal kernel launched {launches['reveal_batch']} times on "
              f"the {label} main path, expected {want_reveal}")
+    # a battery's reveal launch feeds the model whole passes
+    shards = ([1] if batch == 1 else
+              [sl.stop - sl.start for _, sl in
+               shard_slices(ep.battery_mesh(dev, batch), batch)])
+    if not set(shards) <= set(BATTERY_FORWARDS):
+        fail(f"the {label} main path's data shards {shards} hold an image "
+             f"count of no known battery forward count")
+    want_forwards = flushes * sum(BATTERY_FORWARDS[n] for n in shards)
+    if want is None and forwards != want_forwards:
+        fail(f"the {label} main path's batteries ran {forwards} forwards, "
+             f"expected {want_forwards}")
     if launches["quickshift_parents"] != want_qs:
         fail(f"quickshift kernel launched "
              f"{launches['quickshift_parents']} times on the {label} "
              f"main path, expected {want_qs}")
-    # every battery chunk's forward (one a reveal launch) is a fused R101
-    # forward
+    # every battery forward is a fused R101 forward
     if launches["bn_act"] != epilogues.launches or (
             model == "R101" and launches["bn_act"]
-            < R101_EPILOGUES * launches["reveal_batch"]):
+            < R101_EPILOGUES * forwards):
         fail(f"bn_act launched {launches['bn_act']} times on the {label} "
              f"main path, expected {epilogues.launches} (its forwards), "
-             f"at least {R101_EPILOGUES} a reveal launch on R101")
+             f"at least {R101_EPILOGUES} a battery forward on R101 "
+             f"({forwards})")
     print(f"{label} main path: {scored} of {n_images} images scored in "
           f"{flushes} {'flushes of ' + str(batch) if batch > 1 else 'runs'}"
           f", total {total:.3f} s, attribution "
           f"{rows['Attr Avg Runtime']:.3f} s/image (driver CSV, first "
           f"batch cold), peak memory {peak / 2**30:.2f} GiB, launches "
-          f"{json.dumps(launches)}")
+          f"{json.dumps(launches)}, battery forwards {forwards}")
     return launches
 
 
@@ -1840,7 +1892,7 @@ def drive_driver_paths(torch, dev, out_dir, classes, have) -> dict:
           + ("; grid written" if have["matplotlib"] else ""))
 
     # the sweep: 6 runs; each pert run scores one image a class (the
-    # quota at --image_count 2) and launches blur once and reveal 15 times
+    # quota at --image_count 2) and launches blur once and reveal 5 times
     # a scored image
     d = os.path.join(out_dir, "sweep")
     args = sw.build_parser().parse_args(
@@ -3724,7 +3776,7 @@ def drive_zoo_name(torch, dev, out_dir, card, name) -> tuple:
         ["--model", name, "--synthetic", str(ZOO_IMAGES), "--batch_size",
          "100", "--ground_truth", gt, "--class_maps_dir", d])
     builds = []
-    build = fi.get_bundle
+    build = fi.build_bundle
 
     def timed_build(*a, **k):              # a spy: times the finder's own
         t = time.perf_counter()
@@ -3734,7 +3786,7 @@ def drive_zoo_name(torch, dev, out_dir, card, name) -> tuple:
         builds.append(time.perf_counter() - t)
         return out
 
-    fi.get_bundle = timed_build
+    fi.build_bundle = timed_build
     try:
         t0 = time.perf_counter()
         mask, launches = run_path(
@@ -3743,7 +3795,7 @@ def drive_zoo_name(torch, dev, out_dir, card, name) -> tuple:
             NO_LAUNCHES)
         wall = time.perf_counter() - t0
     finally:
-        fi.get_bundle = build
+        fi.build_bundle = build
     on_disk = np.loadtxt(os.path.join(
         d, f"correctly_classified_{name}.txt")).tolist()
     want_mask = [1, 0] * (ZOO_IMAGES // 2)
@@ -3927,7 +3979,7 @@ def single_process_references(torch, dev, out_dir) -> dict:
     runs are phase 4's), each through run_path with its launches: the
     sweep's two pert runs score one image a class of the first two
     (the quota at --image_count 2), each battery blur 1 and at 64 px
-    3 * ceil(65 / 45) = 6 reveals."""
+    ceil(65 / 45) = 2 reveals."""
     classes = model_classes(torch, dev, "TINY_R", 2)
     scored = 2 * len(set(classes))
     by_path = {}
@@ -3938,7 +3990,7 @@ def single_process_references(torch, dev, out_dir) -> dict:
         args = mod.build_parser().parse_args(
             flags + ["--output_dir", os.path.join(out_dir, single)])
         want = (dict(NO_LAUNCHES, blur_planes=scored,
-                     reveal_batch=3 * math.ceil(65 / 45) * scored)
+                     reveal_batch=math.ceil(65 / 45) * scored)
                 if driver == "sweep" else NO_LAUNCHES)
         _, by_path[single] = run_path(
             torch, single, lambda: entry(args, device=dev), want)
@@ -4105,7 +4157,7 @@ def check_profiles(torch, dev, out_dir, card) -> dict:
     without it.  Fails unless each trace holds device kernels, the blur
     and reveal kernels among them, and the profiled CSV is within 1e-4 of
     the unprofiled one; prints the top kernels by summed device time and
-    the busy share.  Returns the launches by path (blur 1, reveal 15
+    the busy share.  Returns the launches by path (blur 1, reveal 5
     each)."""
     from xai_tpu_torch.runners import evaluate_perturbation as ep
 

@@ -4,7 +4,9 @@ At 64 px the battery runs 64 reveal steps (65 curve points) in each of its
 three passes (blur/ins, zeros/del, zeros/lerf).  The same carried weights,
 the same input and the same numpy saliency go through both packages'
 battery on the CPU; the batched battery
-(``parallel/sharded_battery.py``) against xai_tpu's on a one-device mesh.
+(``parallel/sharded_battery.py``) against xai_tpu's on a one-device mesh,
+and against the per-image battery on TINY_R and a small ViT, on one
+device and over a two-shard virtual mesh of the CPU.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +22,12 @@ from xai_tpu.runners.common import build_bundle as jax_build_bundle
 from xai_tpu.runners.common import save_params
 
 from xai_tpu_torch.metrics import curves as TC
+from xai_tpu_torch.models import vit as tvit
+from xai_tpu_torch.models.common import ModelBundle, ModelMeta
 from xai_tpu_torch.ops.blur import make_blur_fn
 from xai_tpu_torch.ops.stats import entropy_bits
 from xai_tpu_torch.parallel import sharded_battery as TSB
+from xai_tpu_torch.parallel.mesh import make_mesh as torch_make_mesh
 from xai_tpu_torch.runners.common import build_bundle
 
 from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
@@ -152,16 +157,26 @@ def test_sharded_battery_scores_match_xai_tpu(twins, targets):
 
 def test_sharded_battery_equals_run_battery(twins):
     """The batched battery gives each image the scores of the per-image
-    battery (the driver's tail path)."""
+    battery (the driver's tail path), on TINY_R and a two-block ViT, on
+    the bundle's device alone (both images in one battery) and over a
+    two-shard virtual mesh of the CPU (an image a shard)."""
     _, tb, _, _ = twins
+    vit = ModelBundle(
+        ModelMeta(name="v", family="vit", img_hw=HW, num_classes=16),
+        tvit.init_random(tvit.VisionTransformer(tvit.ViTConfig(
+            patch=16, embed_dim=32, depth=2, num_heads=4, mlp_ratio=2.0,
+            num_classes=16, img_hw=HW)), seed=4))
     xs, sals = _batch(2, seed=8)
     targets = [4, 9]
-    got = TSB.sharded_battery_scores(tb, torch.from_numpy(xs), sals,
-                                     make_blur_fn(31, 31.0), chunk=CHUNK,
-                                     targets=targets)
-    for i in range(2):
-        want = TC.run_battery(tb.apply, torch.from_numpy(xs[i]), sals[i],
-                              make_blur_fn(31, 31.0), chunk=CHUNK,
-                              target=targets[i])
-        for k in want:
-            assert abs(got[i][k] - want[k]) < 1e-5, (k, got[i][k], want[k])
+    for bundle in (tb, vit):
+        for mesh in (None, torch_make_mesh(devices=[torch.device("cpu")] * 2)):
+            got = TSB.sharded_battery_scores(
+                bundle, torch.from_numpy(xs), sals, make_blur_fn(31, 31.0),
+                chunk=CHUNK, targets=targets, mesh=mesh)
+            for i in range(2):
+                want = TC.run_battery(bundle.apply, torch.from_numpy(xs[i]),
+                                      sals[i], make_blur_fn(31, 31.0),
+                                      chunk=CHUNK, target=targets[i])
+                for k in want:
+                    assert abs(got[i][k] - want[k]) < 1e-5, (
+                        bundle.meta.name, mesh, k, got[i][k], want[k])

@@ -10,8 +10,10 @@ finish, start)``: the reveal kernel (``kernels/reveal.py``) writes a chunk
 of those images, for every image of a batch, straight into one batched
 forward.  One pass returns target prob, top-1 indicator and entropy, so
 the 8-metric battery costs 3 passes (blur/ins, zeros/del, zeros/lerf)
-instead of 8.  One engine serves both driver paths: the per-image
-battery is the batch of one.
+instead of 8, and the battery runs the three as one batch of 3·B
+pseudo-images: one reveal launch a chunk for all three, and one forward
+while its rows fit in ``FUSED_ROWS``.  One engine serves both driver
+paths: the per-image battery is the batch of one.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 
 from ..kernels.reveal import reveal_batch
 from ..ops.stats import auc_np, entropy_bits, spearman_np
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 
 @dataclasses.dataclass
@@ -93,7 +95,12 @@ def batched_curves(apply_fn, starts, finishes, flips, targets,
     at its own target.  Each chunk is one reveal launch of ``B * chunk``
     images into one forward.  When ``chunk`` does not divide the step
     count the last chunk is ragged: it runs only the steps that exist
-    (xai_tpu pads to a whole chunk)."""
+    (xai_tpu pads to a whole chunk).  The battery (:func:`_battery`) calls
+    this once with its three passes stacked as ``3 * B`` images, so each
+    chunk's launch writes ``3 * B * chunk`` images and its forward holds
+    ``3 * B * chunk`` rows while they fit in ``FUSED_ROWS`` (else one or
+    two passes' rows a forward); its activation memory grows with that
+    count."""
     b = starts.shape[0]
     total = n_steps + 1
     tgt = targets.view(b, 1)
@@ -111,20 +118,62 @@ def batched_curves(apply_fn, starts, finishes, flips, targets,
     return torch.cat(tp, 1), torch.cat(top1, 1), torch.cat(ent, 1)
 
 
+# The battery's forwards hold up to this many rows: as many of its three
+# passes as fit.  On an H100 under cuDNN's default heuristics (float32,
+# two probes of five warm forwards a size, within 0.4 % of each other)
+# an R101 forward cost 0.676 ms a row at 45 rows, 0.514 at 135, 0.415 at
+# 180, 0.403 at 225, 0.45-0.46 at 270-360, 0.364 and 0.369 at 405 and
+# 450, and 0.437 at 540; four images' battery ran 5 % slower in 540-row
+# forwards than in 180-row ones.  So one image's three passes share a
+# forward and four images keep a pass a forward; three images stay at
+# 135-row forwards, though 405 rows read 29 % cheaper a row (not measured
+# end to end).  ViT-B/16 and Swin-B gain at most 6 % a row from 180 to
+# 540.
+FUSED_ROWS = 180
+
+
+def passes_per_forward(b: int, chunk: int) -> int:
+    """How many of the battery's three reveal passes share a forward at
+    ``b`` images and ``chunk`` steps: all three while their ``3 * b *
+    chunk`` rows fit in :data:`FUSED_ROWS`, else as many as fit, at least
+    one."""
+    return min(3, max(1, FUSED_ROWS // (b * chunk)))
+
+
 @torch.inference_mode()
 def _battery(apply_fn, blur_fn, x, desc, asc, n_steps: int, chunk: int,
              targets=None):
     """The battery's device work for a batch: one blur launch over all
     ``B*C`` planes, the targets (argmax when None), and the three reveal
-    passes.  x: [B, C, H, W]; desc/asc: [B, H, W] int32 flip steps;
-    targets: int64 [B] or None."""
+    passes (insertion from the blurred image, deletion and LeRF to zeros)
+    as one :func:`batched_curves` call over ``3*B`` pseudo-images, so
+    each chunk is one reveal launch of ``3*B*chunk`` images.  They go to
+    the model in forwards of :func:`passes_per_forward` passes' rows
+    (each counted in ``battery_forwards``): one forward of ``3*B*chunk``
+    rows while that fits in :data:`FUSED_ROWS` (image by image at 224 px:
+    135 rows), and the battery's activation memory grows with a forward's
+    rows.  x: [B, C, H, W]; desc/asc: [B, H, W] int32 flip steps;
+    targets: int64 [B] or None.  Returns each pass's (target prob, top-1,
+    entropy), each [B, n_steps + 1], and the targets."""
     if targets is None:
         targets = apply_fn(x).argmax(dim=-1)
     blurred = blur_fn(x)
     zeros = torch.zeros_like(x)
-    ins = batched_curves(apply_fn, blurred, x, desc, targets, n_steps, chunk)
-    dele = batched_curves(apply_fn, x, zeros, desc, targets, n_steps, chunk)
-    lerf = batched_curves(apply_fn, x, zeros, asc, targets, n_steps, chunk)
+    group = passes_per_forward(x.shape[0], chunk)
+
+    def forward(imgs):
+        # a chunk's images, pass after pass: split at pass boundaries
+        logits = []
+        for part in imgs.split(group * (imgs.shape[0] // 3)):
+            count("battery_forwards")
+            logits.append(apply_fn(part))
+        return torch.cat(logits)
+
+    passes = batched_curves(forward, torch.cat([blurred, x, x]),
+                            torch.cat([x, zeros, zeros]),
+                            torch.cat([desc, desc, asc]), targets.repeat(3),
+                            n_steps, chunk)
+    ins, dele, lerf = zip(*(c.chunk(3) for c in passes))
     return ins, dele, lerf, targets
 
 
@@ -331,9 +380,13 @@ def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
     apply_fn: NCHW batch -> logits (``bundle.apply``).  images:
     ``[B, H, W, C]`` normalized inputs on the model's device; saliencies:
     ``[B, H, W]``; targets: one class per image, default argmax
-    (evaluatePerturbation.py:561).  Returns one dict per image of the
-    reference's Counter keys (evaluatePerturbation.py:484-495) -> float
-    score.
+    (evaluatePerturbation.py:561).  ``chunk``: the reveal steps one
+    launch writes for each pass and image; the three passes run together,
+    so a battery forward holds ``3 * B * chunk`` rows while they fit in
+    ``FUSED_ROWS`` (180; else one or two passes' rows, see
+    :func:`passes_per_forward`), and the battery's activation memory grows
+    with that count.  Returns one dict per image of the reference's
+    Counter keys (evaluatePerturbation.py:484-495) -> float score.
     """
     saliencies = np.asarray(saliencies)
     b, h, w, _ = images.shape
@@ -361,7 +414,9 @@ def run_battery(apply_fn, input_img: torch.Tensor, saliency: np.ndarray,
                 blur_fn, step_size: Optional[int] = None, chunk: int = 45,
                 target: Optional[int] = None) -> dict:
     """All 10 perturbation scores of one ``[H, W, C]`` image: the batch of
-    one of :func:`battery_scores`."""
+    one of :func:`battery_scores`, whose forwards hold ``3 * chunk`` rows
+    (the three passes at once, up to ``chunk`` 60; activation memory grows
+    with that count)."""
     return battery_scores(apply_fn, input_img[None],
                           np.asarray(saliency)[None], blur_fn, step_size,
                           chunk, None if target is None else [target])[0]

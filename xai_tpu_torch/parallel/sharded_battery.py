@@ -3,9 +3,12 @@ sharded over a device mesh.
 
 Counterpart of ``xai_tpu/parallel/sharded_battery.py``.  The engine is
 ``metrics/curves.py`` (``batched_curves``, ``battery_curves``), which the
-per-image battery runs on a batch of one: each reveal chunk of a batch is
-one launch of the reveal kernel (``kernels/reveal.py reveal_batch``),
-``[B, S, C, H, W]``, straight into one forward of ``B*S`` images.
+per-image battery runs on a batch of one: the three reveal passes of a
+batch run as one batch of ``3*B`` images, and each reveal chunk is one
+launch of the reveal kernel (``kernels/reveal.py reveal_batch``),
+``[3*B, S, C, H, W]``, straight into the model: one forward of ``3*B*S``
+images while they fit in ``curves.FUSED_ROWS``, else one or two passes'
+images a forward.
 
 The images split over the mesh's data rows (``parallel/mesh.py``) in
 contiguous, possibly ragged shards, and each row runs one blur launch

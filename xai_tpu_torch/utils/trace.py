@@ -32,9 +32,12 @@ methods that run the module themselves.  ``window_attn_rows`` counts the
 query rows of windowed attention (``models/swin.py WindowAttention``:
 windows times tokens a window, in Swin's blocks and MaxViT's block and
 grid layers), and ``masked_window_rows`` those of the calls that carry a
-shift mask (Swin's shifted blocks).  A kernel wrapper counts its
-launches in its own ``.launches`` attribute, under the same lock
-(:func:`count_launches`).
+shift mask (Swin's shifted blocks).  ``battery_forwards`` counts the
+forwards of the battery's reveal chunks (``metrics/curves.py _battery``:
+a chunk's three passes share a forward up to 180 rows, so a 224 px
+battery runs 5 image by image and 15 at four images).  A kernel
+wrapper counts its launches in its own ``.launches`` attribute, under the
+same lock (:func:`count_launches`).
 """
 from __future__ import annotations
 
