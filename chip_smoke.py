@@ -145,17 +145,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    within 1e-4, and each of the 15 full-width names on 2 images, logits
    within 1e-3 of max |logit| and top-1 equal unless the CPU's top two
    lie within that bound;
-6. time one warm IG-50 attribution, one warm battery and one warm LIME
-   attribution of R101, LIME split by stage with CUDA events; then R101 at
-   B=4: batched IG-50, LIG, IDG, IDGI and SG in float32 and in bf16, and
-   the batched battery, per image, with CUDA events; then each of the
-   rest of the family warm on R101, image by image and at B=4 (shap in
-   bf16 too), with CUDA events and peak memory; sanity-ig and seg-ig per
-   image, split into attribution and host metrics, and the image
-   finder's images a second at --batch_size 100; then VIT16: each ViT
-   name's s/image image by image and at B=4 in float32 and bf16 with
-   peak memory, the battery image by image and at B=4, sanity-rollout
-   and seg-rollout per image, and the image finder's images a second;
+6. time the warm paths that no benchmark cell measures (the cells
+   r101_ig_b1, r101_ig_b4 and vit16_rollout_b4 time R101 IG-50 and its
+   battery image by image and at B=4, and VIT16 rollout and its battery
+   at B=4): one warm LIME attribution of R101, split by stage with CUDA
+   events; then R101 at B=4: batched IG-50 in bf16 (with its Spearman
+   rho against float32), LIG, IDG, IDGI and SG in float32 and in bf16,
+   per image, with CUDA events; then each of the rest of the family warm
+   on R101, image by image and at B=4 (shap in bf16 too), with CUDA
+   events and peak memory; sanity-ig and seg-ig per image, split into
+   attribution and host metrics, and the image finder's images a second
+   at --batch_size 100; then VIT16: each ViT name's s/image image by
+   image and at B=4 in float32 and bf16 with peak memory, the battery
+   image by image, sanity-rollout and seg-rollout per image, and the
+   image finder's images a second;
    and TIS, VIT_CX, MDA and MDA_dense image by image (TIS and VIT_CX in
    bf16 too) and VIT_CX at B=4 in float32 and bf16, with peak memory;
    then CLIP16: the text table's build, each CLIP name's s/image image by
@@ -1126,35 +1129,16 @@ def check_small_reference(torch, dev):
 
 
 def time_warm_image(torch, dev, card):
-    """Phase 6: one warm IG-50, one warm battery and one warm LIME of
-    R101; LIME split into its stages with CUDA events."""
+    """Phase 6: one warm LIME of R101, split into its stages with CUDA
+    events (IG-50 and the battery image by image are the cell
+    r101_ig_b1's).  Returns the R101 bundle."""
     import numpy as np
 
     from xai_tpu_torch.methods import lime as tl
-    from xai_tpu_torch.metrics.curves import run_battery
-    from xai_tpu_torch.registry import AttrContext, get_attribution
-    from xai_tpu_torch.runners.common import (build_bundle, default_blur,
-                                              normalize_input)
+    from xai_tpu_torch.runners.common import build_bundle
 
     bundle = build_bundle("R101", device=dev)
     img = np.random.RandomState(0).rand(224, 224, 3).astype(np.float32)
-    x = normalize_input(img, "cnn", dev)
-    ctx = AttrContext(bundle=bundle, x=x, trans_img=img, target=1)
-    blur = default_blur()
-    times = {"attr": [], "battery": []}
-    for _ in range(2):                       # the first round warms up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sal = get_attribution("cnn", "ig", ctx)
-        t1 = time.perf_counter()
-        run_battery(bundle.apply, x, sal, blur, chunk=45, target=1)
-        torch.cuda.synchronize()
-        times["attr"].append(t1 - t0)
-        times["battery"].append(time.perf_counter() - t1)
-    print(f"R101 warm: IG-50 attribution {times['attr'][-1]:.4f} s/image, "
-          f"battery {times['battery'][-1]:.4f} s/image "
-          f"(cold: {times['attr'][0]:.4f}, {times['battery'][0]:.4f})")
-    per_image = {"ig": times["attr"][-1], "battery": times["battery"][-1]}
 
     # LIME as lime() runs it: B=1, 1000 samples, chunk 100, stage by stage
     imgs = torch.as_tensor(img, device=dev)[None]
@@ -1184,7 +1168,7 @@ def time_warm_image(torch, dev, card):
           f"({int(counts[0])} segments); by stage (CUDA events): "
           + ", ".join(f"{s} {v:.4f} s" for s, v in split.items())
           + f" on {card}")
-    return bundle, per_image
+    return bundle
 
 
 BATCH_METHODS = ("ig", "lig", "idg", "idgi", "grad", "inp_x_grad", "sg")
@@ -1309,58 +1293,56 @@ def _event_s(torch, fn):
     return out, start.elapsed_time(end) / 1e3
 
 
-def time_warm_batch(torch, dev, card, bundle, per_image):
+def time_warm_batch(torch, dev, card, bundle):
     """Phase 6, batched: R101 at --image_batch 4, each IG-family method in
-    float32 and in bf16 and the batched battery, timed with CUDA events on
-    a second, warm call; printed per image beside the per-image IG-50 and
-    battery of this run."""
+    float32 and in bf16, timed with CUDA events on a second, warm call.
+    IG-50 in float32 and its battery at B=4 are the cell r101_ig_b4's;
+    that map is made once here, untimed, for bf16's Spearman rho."""
     import numpy as np
 
     from xai_tpu_torch.methods.batch import batch_attribution
     from xai_tpu_torch.ops.stats import spearman_np
-    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
-    from xai_tpu_torch.runners.common import default_blur, normalize_input
+    from xai_tpu_torch.runners.common import normalize_input
 
     b = 4
     imgs = np.random.RandomState(0).rand(b, 224, 224, 3).astype(np.float32)
     xs = torch.stack([normalize_input(im, "cnn", dev) for im in imgs])
     targets = [1, 2, 3, 4]
+    methods = ("ig", "lig", "idg", "idgi", "sg")
+
+    def attribute(m, dtype):
+        return batch_attribution(
+            "cnn", m, bundle, xs, imgs, targets,
+            [torch.Generator(dev).manual_seed(i) for i in range(b)],
+            dtype=dtype)
+
+    sals = {("ig", "f32"): attribute("ig", None)}
     per = {}
-    sals = {}
     for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-        for m in ("ig", "lig", "idg", "idgi", "sg"):
+        for m in methods:
+            if (m, dname) in sals:
+                continue
             torch.cuda.reset_peak_memory_stats(dev)
             for _ in range(2):               # the first call warms up
-                sals[m, dname], sec = _event_s(torch, lambda: (
-                    batch_attribution(
-                        "cnn", m, bundle, xs, imgs, targets,
-                        [torch.Generator(dev).manual_seed(i)
-                         for i in range(b)], dtype=dtype)))
+                sals[m, dname], sec = _event_s(
+                    torch, lambda: attribute(m, dtype))
             per[m, dname] = sec / b
             peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-            if not np.isfinite(sals[m, dname]).all():
-                fail(f"batched R101 {m} {dname}: non-finite saliency")
             print(f"R101 warm batched {m} {dname}: {per[m, dname]:.4f} "
                   f"s/image at B={b} (peak memory {peak:.2f} GiB)")
-    for _ in range(2):
-        scores, sec = _event_s(torch, lambda: sharded_battery_scores(
-            bundle, xs, sals["ig", "f32"], default_blur(), 45, targets))
-    if not all(math.isfinite(v) for s in scores for v in s.values()):
-        fail("batched R101 battery: non-finite scores")
-    per["battery"] = sec / b
+    for (m, dname), sal in sals.items():
+        if not np.isfinite(sal).all():
+            fail(f"batched R101 {m} {dname}: non-finite saliency")
     # zero-bias random weights give a zero gradient at the black image, so
     # a LIG cut at its first step leaves a constant map: rho is undefined
     with np.errstate(invalid="ignore"):
         rho = {m: min(spearman_np(f, h) for f, h in zip(sals[m, "f32"],
                                                         sals[m, "bf16"]))
-               for m in ("ig", "lig", "idg", "idgi", "sg")}
-    print(f"R101 warm at B={b}, s/image (CUDA events; per-image path of "
-          f"this run: IG-50 {per_image['ig']:.4f}, battery "
-          f"{per_image['battery']:.4f}): "
-          + ", ".join(f"{m} f32 {per[m, 'f32']:.4f} / bf16 "
-                      f"{per[m, 'bf16']:.4f}"
-                      for m in ("ig", "lig", "idg", "idgi", "sg"))
-          + f"; battery {per['battery']:.4f} on {card}")
+               for m in methods}
+    print(f"R101 warm at B={b}, s/image (CUDA events): "
+          + ", ".join(f"{m} {dname} {sec:.4f}"
+                      for (m, dname), sec in per.items())
+          + f" on {card}")
     print("R101 random weights, bf16 against float32, least Spearman rho "
           "over the images: " + ", ".join(f"{m} {v:.4f}"
                                           for m, v in rho.items()))
@@ -3026,9 +3008,10 @@ def time_warm_vit(torch, dev, card):
     """Phase 6, the ViT family on VIT16, warm, with CUDA events: each
     name's s/image image by image (the registry) and at B=4 in float32
     and bf16 (batch_attribution), with peak memory; the battery image by
-    image and at B=4; sanity-rollout and seg-rollout per image, split
-    into attribution and host metrics; the image finder's images a second
-    at --batch_size 100 (end to end and the forward alone)."""
+    image; sanity-rollout and seg-rollout per image, split into
+    attribution and host metrics; the image finder's images a second at
+    --batch_size 100 (end to end and the forward alone).  Rollout in
+    float32 and its battery at B=4 are the cell vit16_rollout_b4's."""
     import numpy as np
 
     from xai_tpu_torch.data.segmentation import ImagenetSegmentation
@@ -3036,7 +3019,6 @@ def time_warm_vit(torch, dev, card):
     from xai_tpu_torch.metrics.curves import run_battery
     from xai_tpu_torch.metrics.sanity import evaluate as sanity_evaluate
     from xai_tpu_torch.metrics.seg import eval_batch
-    from xai_tpu_torch.parallel.sharded_battery import sharded_battery_scores
     from xai_tpu_torch.registry import AttrContext, get_attribution
     from xai_tpu_torch.runners import evaluate_sanity as es
     from xai_tpu_torch.runners import image_finder as fi
@@ -3055,9 +3037,10 @@ def time_warm_vit(torch, dev, card):
         calls = [("image", lambda: get_attribution("vit", name, ctx)[None],
                   1)]
         for dname, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-            calls.append((f"b4 {dname}", lambda dtype=dtype: (
-                batch_attribution("vit", name, bundle, xs, imgs, targets,
-                                  None, dtype=dtype)), 4))
+            if (name, dname) != ("rollout", "f32"):
+                calls.append((f"b4 {dname}", lambda dtype=dtype: (
+                    batch_attribution("vit", name, bundle, xs, imgs,
+                                      targets, None, dtype=dtype)), 4))
         for kind, fn, b in calls:
             fn()                                     # warm
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3070,27 +3053,21 @@ def time_warm_vit(torch, dev, card):
               f"{peak / 2 ** 30:.2f} GiB)")
     print("VIT16 warm, s/image (CUDA events), image by image / B=4 f32 / "
           "B=4 bf16: " + ", ".join(
-              f"{n} {out[n, 'image'][0]:.4f} / {out[n, 'b4 f32'][0]:.4f} / "
-              f"{out[n, 'b4 bf16'][0]:.4f}" for n in VIT_NAMES)
-          + f" on {card}")
+              f"{n} " + " / ".join(
+                  f"{out[n, k][0]:.4f}" if (n, k) in out else "cell"
+                  for k in ("image", "b4 f32", "b4 bf16"))
+              for n in VIT_NAMES) + f" on {card}")
 
     sal1 = get_attribution("vit", "rollout", AttrContext(
         bundle=bundle, x=xs[0], trans_img=imgs[0], target=targets[0]))
-    sals = batch_attribution("vit", "rollout", bundle, xs, imgs, targets,
-                             None)
     blur = default_blur()
     for _ in range(2):                       # the first round warms up
         torch.cuda.reset_peak_memory_stats(dev)
         _, t1 = _event_s(torch, lambda: run_battery(
             bundle.apply, xs[0], sal1, blur, chunk=45, target=targets[0]))
         peak1 = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        _, t4 = _event_s(torch, lambda: sharded_battery_scores(
-            bundle, xs, sals, blur, 45, targets))
-        peak4 = torch.cuda.max_memory_allocated(dev)
     print(f"VIT16 warm battery: {t1:.4f} s/image image by image (peak "
-          f"{peak1 / 2 ** 30:.2f} GiB), {t4 / 4:.4f} s/image at B=4 (peak "
-          f"{peak4 / 2 ** 30:.2f} GiB) on {card}")
+          f"{peak1 / 2 ** 30:.2f} GiB) on {card}")
 
     rand = es.randomize_family(bundle, "vit",
                                torch.Generator().manual_seed(1))
@@ -4117,13 +4094,26 @@ def check_two_processes(torch, dev, out_dir, by_path) -> dict:
 PROFILE_PATHS = [("R101", "ig"), ("VIT16", "rollout"), ("CLIP16", "eclip")]
 
 
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
 def trace_summary(path: str, top: int = 8) -> dict:
     """A Chrome trace's device kernels: count, summed device time (and
     that of the port's blur and reveal kernels), the busy share of the
     traced window and of the kernels' own span, and the ``top`` kernels
     by summed time."""
-    from xai_tpu_torch.runners.profile_main_path import _busy_us
-
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -4806,8 +4796,8 @@ def main() -> None:
         with timed_phase(phases, name):
             check()
     with timed_phase(phases, "6 CNN timing"):
-        bundle, per_image = time_warm_image(torch, dev, card)
-        time_warm_batch(torch, dev, card, bundle, per_image)
+        bundle = time_warm_image(torch, dev, card)
+        time_warm_batch(torch, dev, card, bundle)
         time_warm_a8(torch, dev, card, bundle)
         time_warm_drivers(torch, dev, card, bundle)
         del bundle

@@ -81,7 +81,8 @@ def test_run_battery_spans_nest(bundle):
                     common.default_blur(), chunk=45, target=p["target"])
     spans = trace.records()
     assert [s.name for s in spans] == ["battery", "battery.schedule",
-                                       "battery.read", "battery.score"]
+                                       "battery.shard", "battery.read",
+                                       "battery.score"]
     battery = spans[0]
     assert battery.parent is None
     for child in spans[1:]:

@@ -33,7 +33,7 @@ KERNELS = ("blur", "reveal", "quickshift", "bn_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a mesh battery launches from one host thread a data shard
-# (parallel/sharded_battery.py): the first loads are shared between them
+# (metrics/curves.py): the first loads are shared between them
 # (the launch counters are utils/trace.py's)
 _LOCK = threading.Lock()
 

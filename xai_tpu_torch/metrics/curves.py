@@ -10,14 +10,15 @@ finish, start)``: the reveal kernel (``kernels/reveal.py``) writes a chunk
 of those images, for every image of a batch, straight into one batched
 forward.  One pass returns target prob, top-1 indicator and entropy, so
 the 8-metric battery costs 3 passes (blur/ins, zeros/del, zeros/lerf)
-instead of 8, and the battery runs the three as one batch of 3·B
-pseudo-images: one reveal launch a chunk for all three, and one forward
-while its rows fit in ``FUSED_ROWS``.  One engine serves both driver
-paths: the per-image battery is the batch of one.
+instead of 8, run together (:func:`_battery`).  One host flow
+(:func:`_battery_over_shards`) drives every battery: the per-image one
+is a batch of one on one device, and the mesh's
+(``parallel/sharded_battery.py``) hands it a list of data shards.
 """
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -96,11 +97,7 @@ def batched_curves(apply_fn, starts, finishes, flips, targets,
     images into one forward.  When ``chunk`` does not divide the step
     count the last chunk is ragged: it runs only the steps that exist
     (xai_tpu pads to a whole chunk).  The battery (:func:`_battery`) calls
-    this once with its three passes stacked as ``3 * B`` images, so each
-    chunk's launch writes ``3 * B * chunk`` images and its forward holds
-    ``3 * B * chunk`` rows while they fit in ``FUSED_ROWS`` (else one or
-    two passes' rows a forward); its activation memory grows with that
-    count."""
+    this once with its three passes stacked as ``3 * B`` images."""
     b = starts.shape[0]
     total = n_steps + 1
     tgt = targets.view(b, 1)
@@ -134,8 +131,7 @@ FUSED_ROWS = 180
 
 def passes_per_forward(b: int, chunk: int) -> int:
     """How many of the battery's three reveal passes share a forward at
-    ``b`` images and ``chunk`` steps: all three while their ``3 * b *
-    chunk`` rows fit in :data:`FUSED_ROWS`, else as many as fit, at least
+    ``b`` images and ``chunk`` steps (:data:`FUSED_ROWS`), at least
     one."""
     return min(3, max(1, FUSED_ROWS // (b * chunk)))
 
@@ -381,42 +377,70 @@ def battery_scores(apply_fn, images: torch.Tensor, saliencies, blur_fn,
     ``[B, H, W, C]`` normalized inputs on the model's device; saliencies:
     ``[B, H, W]``; targets: one class per image, default argmax
     (evaluatePerturbation.py:561).  ``chunk``: the reveal steps one
-    launch writes for each pass and image; the three passes run together,
-    so a battery forward holds ``3 * B * chunk`` rows while they fit in
-    ``FUSED_ROWS`` (180; else one or two passes' rows, see
-    :func:`passes_per_forward`), and the battery's activation memory grows
-    with that count.  Returns one dict per image of the reference's
+    launch writes for each pass and image (a forward's rows:
+    :func:`_battery`).  Returns one dict per image of the reference's
     Counter keys (evaluatePerturbation.py:484-495) -> float score.
     """
-    saliencies = np.asarray(saliencies)
-    b, h, w, _ = images.shape
-    step_size = step_size or h
-    n_steps = (h * w + step_size - 1) // step_size
-
-    with span("battery"):
-        desc, asc = flip_schedules(saliencies, step_size)
-        dev = images.device
-        x = images.permute(0, 3, 1, 2).contiguous()
-        if targets is not None:
-            targets = torch.as_tensor(targets, dtype=torch.int64, device=dev)
-        curves = battery_curves(
-            apply_fn, blur_fn, x,
-            torch.from_numpy(desc.reshape(b, h, w)).to(dev),
-            torch.from_numpy(asc.reshape(b, h, w)).to(dev), n_steps, chunk,
-            targets)
-        # one device -> host copy for the five curves the scores read
-        with span("battery.read"):
-            host = curves.cpu().numpy()
-        return assemble_scores(host, saliencies, desc, n_steps)
+    return _battery_over_shards(
+        images, saliencies, blur_fn, chunk, targets,
+        [(apply_fn, images.device, slice(None))], step_size)
 
 
 def run_battery(apply_fn, input_img: torch.Tensor, saliency: np.ndarray,
                 blur_fn, step_size: Optional[int] = None, chunk: int = 45,
                 target: Optional[int] = None) -> dict:
     """All 10 perturbation scores of one ``[H, W, C]`` image: the batch of
-    one of :func:`battery_scores`, whose forwards hold ``3 * chunk`` rows
-    (the three passes at once, up to ``chunk`` 60; activation memory grows
-    with that count)."""
+    one of :func:`battery_scores`."""
     return battery_scores(apply_fn, input_img[None],
                           np.asarray(saliency)[None], blur_fn, step_size,
                           chunk, None if target is None else [target])[0]
+
+
+def _battery_over_shards(images: torch.Tensor, saliencies, blur_fn,
+                         chunk: int, targets, shards: list,
+                         step_size: Optional[int] = None) -> list:
+    """The battery's host flow, under the span ``battery``: every image's
+    flip steps on the host, each data shard's :func:`battery_curves`
+    enqueued on its device, one device-to-host read of the curves, in
+    image order, and the scores.  images: ``[B, H, W, C]``; shards:
+    ``[(forward, device, slice of the batch)]``, covering the batch in
+    order; ``step_size`` defaults to the image height."""
+    saliencies = np.asarray(saliencies)
+    b, h, w, _ = images.shape
+    step_size = step_size or h
+    n_steps = (h * w + step_size - 1) // step_size
+    with span("battery") as battery:
+        desc, asc = flip_schedules(saliencies, step_size)
+        x = images.permute(0, 3, 1, 2).contiguous()
+        desc_t = torch.from_numpy(desc.reshape(b, h, w))
+        asc_t = torch.from_numpy(asc.reshape(b, h, w))
+        if targets is not None:
+            targets = torch.as_tensor(targets, dtype=torch.int64)
+        # a copy between cards runs on the source card's stream, behind the
+        # work queued there, so a copy made after shard 0's battery would
+        # hold the next shard until shard 0 had finished
+        work = [(battery, str(dev), forward, blur_fn, x[sl].to(dev),
+                 desc_t[sl].to(dev), asc_t[sl].to(dev), n_steps, chunk,
+                 None if targets is None else targets[sl].to(dev))
+                for forward, dev, sl in shards]
+        if len(work) == 1:
+            out = [_shard_curves(*work[0])]
+        else:
+            # one host thread a shard: a card's launch queue holds about a
+            # thousand kernels and a shard's battery enqueues thousands, so
+            # a single thread would wait on shard 0's queue until shard 0
+            # had nearly finished before it enqueued shard 1 (the cards
+            # would take turns)
+            with ThreadPoolExecutor(len(work)) as pool:
+                futures = [pool.submit(_shard_curves, *a) for a in work]
+                out = [f.result() for f in futures]
+        with span("battery.read"):
+            host = np.concatenate([c.cpu().numpy() for c in out], axis=1)
+        return assemble_scores(host, saliencies, desc, n_steps)
+
+
+def _shard_curves(battery, card, *args):
+    """One data shard's :func:`battery_curves`, enqueued (not read) under
+    the span ``battery.shard``, a child of the span ``battery``."""
+    with span("battery.shard", parent=battery, card=card):
+        return battery_curves(*args)

@@ -52,7 +52,7 @@ import torch
 from torch.autograd import profiler as _profiler
 
 # counters and spans are shared by every thread: a mesh battery launches
-# from one host thread a data shard (parallel/sharded_battery.py)
+# from one host thread a data shard (metrics/curves.py)
 _LOCK = threading.Lock()
 _COUNTS = collections.Counter()
 _RECORDS: List["Span"] = []
