@@ -37,7 +37,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    zeros, and on a whole R101 forward against the plain path (100
    launches), then timed at each pass of a 180-row forward (B=4) beside
    its bytes bound, its plain version and addcmul + add_ + relu_, and of
-   a 135-row one (image by image) beside its bound;
+   a 135-row one (image by image) beside its bound; the fused LayerNorm
+   (layernorm) within 4 ulps of its plain version at every width the
+   cells run and ragged row counts, on a ViT-B/16 and a Swin-B forward
+   (one launch a LayerNorm), then timed at each LayerNorm of both
+   models' 180-row forwards beside its bytes bound, its plain version
+   and F.layer_norm, with each whole forward with and without it;
 4. drive the main paths through their entry point,
    evaluate_perturbation --model R101 at 224 px with seeded random
    weights, launch counters zeroed just before each and read just after:
@@ -56,7 +61,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    holds all three passes) and run 5 battery forwards (the counter
    battery_forwards) a battery of one image, 10 of two, 15 of four, and
    at least 100 bn_act launches a battery forward on R101 (each a fused
-   R101 forward), and quickshift once on a
+   R101 forward), bn_act and layernorm as often as the path's forwards
+   pass their gates (FusedPasses), and quickshift once on a
    LIME path and never on another; a batched path must score all its
    images in full batches; then the other
    drivers on R101, each through its entry point with its launches:
@@ -317,24 +323,29 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper by name; each counts its launches."""
     from xai_tpu_torch.kernels.blur import blur_planes
     from xai_tpu_torch.kernels.bn_act import bn_act
+    from xai_tpu_torch.kernels.layernorm import layernorm
     from xai_tpu_torch.kernels.quickshift import quickshift_parents
     from xai_tpu_torch.kernels.reveal import reveal_batch
     return {"blur_planes": blur_planes, "reveal_batch": reveal_batch,
-            "quickshift_parents": quickshift_parents, "bn_act": bn_act}
+            "quickshift_parents": quickshift_parents, "bn_act": bn_act,
+            "layernorm": layernorm}
 
 
-class FusedEpilogues:
-    """The bn_act launches that a path's ResNet forwards should make,
-    counted by a global forward pre-hook at each module's input, the
-    input that ``models/resnet.py`` dispatches on: one for a ResNet's
-    stem and three for a bottleneck, where no autograd graph is recorded,
-    the input is a contiguous CUDA float32 tensor and the module's
-    activation is ``F.relu``.  Each path's expected bn_act count is this
-    one, zeroed with the kernel counters: R101 100 a fused forward, 0
-    where no ResNet runs and in the forwards that record a graph.  A
-    channels-last view (LIME's samples, for one: a permuted NHWC stack)
-    keeps the stem's separate ops, and its blocks fuse only where the
-    stem's output comes out contiguous."""
+class FusedPasses:
+    """The launches of the fused passes that a path's forwards should
+    make, counted by a global forward pre-hook at each module's input,
+    the input that the model dispatches on, where no autograd graph is
+    recorded.  ``bn_act``: one for a ResNet's stem and three for a
+    bottleneck (``models/resnet.py``), where the input is a contiguous
+    CUDA float32 tensor and the module's activation is ``F.relu``: R101
+    100 a fused forward.  A channels-last view (LIME's samples, for one:
+    a permuted NHWC stack) keeps the stem's separate ops, and its blocks
+    fuse only where the stem's output comes out contiguous.
+    ``layernorm``: one a ``models/common.py LayerNorm`` call whose
+    operands the kernel takes (``kernels/layernorm.py fits``): ViT-B/16
+    25 a forward, Swin-B 53.  Each path's expected counts are
+    :meth:`want`, zeroed with the kernel counters by :meth:`zero`: 0
+    where no such model runs and in the forwards that record a graph."""
 
     def __init__(self):
         import threading
@@ -343,35 +354,54 @@ class FusedEpilogues:
         import torch.nn.functional as F
         from torch.nn.modules.module import register_module_forward_pre_hook
 
+        from xai_tpu_torch.kernels.layernorm import fits
+        from xai_tpu_torch.models.common import LayerNorm
         from xai_tpu_torch.models.resnet import Bottleneck, ResNet
 
-        self.launches = 0
-        lock = threading.Lock()     # a mesh battery's shards run in threads
+        self.counts = dict.fromkeys(FUSED, 0)
+        # a mesh battery's shards run in threads
+        self._lock = threading.Lock()
 
         def pre_hook(module, args):
-            passes = (1 if isinstance(module, ResNet) else
-                      3 if isinstance(module, Bottleneck) else 0)
-            if not passes or not args:
+            if not args or torch.is_grad_enabled():
                 return
             x = args[0]
-            if (module.relu is F.relu and not torch.is_grad_enabled()
-                    and x.is_cuda and x.dtype == torch.float32
-                    and x.is_contiguous()):
-                with lock:
-                    self.launches += passes
+            if isinstance(module, LayerNorm):
+                if fits(x, module.scale, module.bias):
+                    self._add("layernorm", 1)
+                return
+            passes = (1 if isinstance(module, ResNet) else
+                      3 if isinstance(module, Bottleneck) else 0)
+            if (passes and module.relu is F.relu and x.is_cuda
+                    and x.dtype == torch.float32 and x.is_contiguous()):
+                self._add("bn_act", passes)
 
         register_module_forward_pre_hook(pre_hook)
 
+    def _add(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counts[name] += n
 
-_EPILOGUES = []
+    def zero(self) -> None:
+        with self._lock:
+            self.counts = dict.fromkeys(FUSED, 0)
+
+    def want(self) -> dict:
+        with self._lock:
+            return dict(self.counts)
 
 
-def fused_epilogues() -> FusedEpilogues:
-    """This process's one FusedEpilogues, its hook installed at the first
+# the kernels whose launches FusedPasses expects from the forwards
+FUSED = ("bn_act", "layernorm")
+_FUSED_PASSES = []
+
+
+def fused_passes() -> FusedPasses:
+    """This process's one FusedPasses, its hook installed at the first
     call."""
-    if not _EPILOGUES:
-        _EPILOGUES.append(FusedEpilogues())
-    return _EPILOGUES[0]
+    if not _FUSED_PASSES:
+        _FUSED_PASSES.append(FusedPasses())
+    return _FUSED_PASSES[0]
 
 
 def check_kernels(torch, dev, x_hwc):
@@ -898,6 +928,265 @@ def check_bn_act(torch, dev):
                 **totals)
 
 
+# LayerNorm launches a forward under inference: ViT-B/16's 2 x 12 + 1;
+# Swin-B's patch norm, 2 x 24 in its blocks, 3 patch mergings, the last
+LN_VIT_B16 = 2 * 12 + 1
+LN_SWIN_B = 1 + 2 * 24 + 3 + 1
+
+
+def check_layernorm(torch, dev):
+    """Phase 3, the fused LayerNorm: against its plain version and a
+    float64 LayerNorm at every width the cells run (Swin-B's 128 to 2048,
+    ViT-B/16's 768) at ragged row counts up to a 180-row ViT forward's
+    35,460, and at widths whose quads leave lanes idle (64, 96, 320):
+    centred rows within 4 float32 ulps of the plain version's largest
+    |y| (with row offsets the fast variance cancels digits, and two
+    orders of its sums differ by more); a width's rows, centred or not,
+    no further from float64 than twice the plain version (root mean
+    square over the width's row counts); rows with NaN or
+    inf as the plain version gives them; one launch a call.  Then a
+    ViT-B/16 and a Swin-B forward at [2, 3, 224, 224] under inference:
+    one launch a LayerNorm, as many as FusedPasses counts (25 and 53),
+    every token row fused, logits within 1e-4 of the largest of the same
+    forward recording a graph (the separate ops).  Then each distinct
+    LayerNorm of both models' 180-row forwards (the battery's at
+    --image_batch 4) timed beside its bytes bound, the plain version and
+    F.layer_norm (its two-pass variance is another formula: a yardstick
+    of time only), summed over a forward's passes; Swin's patch norm on
+    the strided NHWC view of the patch convolution, the separate ops
+    against a contiguous copy and the kernel; and each model's whole
+    180-row forward with the kernel and with the separate ops.  Inputs
+    rotate through copies that together exceed the 50 MB L2."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from xai_tpu_torch.kernels import layernorm as kl
+    from xai_tpu_torch.kernels.bounds import layernorm_bound_ms
+    from xai_tpu_torch.models import common, swin, vit
+    from xai_tpu_torch.utils import trace
+
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def operands(rows, c, offset=0.3):
+        # a per-row spread and offset, as a residual stream has; at offset
+        # 0 each row centred on 0 (in float64, then rounded)
+        x = (torch.randn(rows, c, device=dev, generator=gen)
+             * (0.5 + torch.rand(rows, 1, device=dev, generator=gen))
+             + offset * torch.randn(rows, 1, device=dev, generator=gen))
+        if not offset:
+            x = (x.double() - x.double().mean(-1, keepdim=True)).float()
+        return [x, 1 + 0.2 * torch.randn(c, device=dev, generator=gen),
+                0.2 * torch.randn(c, device=dev, generator=gen)]
+
+    def float64_ln(x, s, b, eps):
+        x = x.double()
+        mu = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
+        return (x - mu) * (torch.rsqrt(var + eps) * s.double()) + b.double()
+
+    widths = {c: (1, 31, 33, 35460) for c in (128, 256, 512, 768, 1024,
+                                              2048)}
+    widths.update({c: (1, 33, 1000) for c in (64, 96, 320)})
+    # ulps from the plain version (centred rows; rows with an offset,
+    # whose fast variance cancels digits, for the record); and a width's
+    # error against float64 over its row counts together, root mean
+    # square (the largest, for the record, is one draw of a few roundings
+    # in the worst-conditioned row), over the plain version's
+    worst = {"ulps": 0.0, "offset_ulps": 0.0, "rms_ratio": 0.0,
+             "max_ratio": 0.0}
+    bad = []
+    for (c, counts), offset in itertools.product(widths.items(), (0.0, 0.3)):
+        err = plain_err = sq = plain_sq = 0.0
+        for rows in counts:
+            x, sc, b = operands(rows, c, offset)
+            before = kl.layernorm.launches
+            got = kl.layernorm(x, sc, b, 1e-5)
+            if kl.layernorm.launches - before != 1:
+                fail("layernorm launched more or fewer than one kernel")
+            want = kl.layernorm_plain(x, sc, b, 1e-5)
+            exact = float64_ln(x, sc, b, 1e-5)
+            top = want.abs().max().item()
+            ulps = (got - want).abs().max().item() / 2.0 ** (
+                math.floor(math.log2(top)) - 23)
+            err = max(err, (got.double() - exact).abs().max().item())
+            plain_err = max(plain_err,
+                            (want.double() - exact).abs().max().item())
+            sq += ((got.double() - exact) ** 2).sum().item()
+            plain_sq += ((want.double() - exact) ** 2).sum().item()
+            print(f"layernorm [{rows}, {c}], row offsets {offset}: "
+                  f"{ulps:.2f} ulps from the plain version")
+            if not (offset or ulps <= 4):
+                bad.append(f"[{rows}, {c}]: {ulps:.2f} ulps")
+            key = "offset_ulps" if offset else "ulps"
+            worst[key] = max(worst[key], ulps)
+        rms_ratio = math.sqrt(sq / plain_sq)
+        print(f"layernorm width {c}, row offsets {offset}: error against "
+              f"float64 {rms_ratio:.3f}x the plain version's (root mean "
+              f"square), largest {err:.3e} against {plain_err:.3e}")
+        if rms_ratio > 2:
+            bad.append(f"width {c}, row offsets {offset}: error against "
+                       f"float64 {rms_ratio:.3f}x the plain version's")
+        worst["rms_ratio"] = max(worst["rms_ratio"], rms_ratio)
+        worst["max_ratio"] = max(worst["max_ratio"], err / plain_err)
+    if bad:
+        fail("layernorm strays from the plain version or float64 at "
+             + "; ".join(bad))
+    x, sc, b = operands(40, 768)
+    x[3, 7], x[9, 0], x[11] = math.nan, math.inf, 0.0
+    got, want = kl.layernorm(x, sc, b, 1e-6), kl.layernorm_plain(x, sc, b,
+                                                                1e-6)
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and bool(torch.isnan(got[3]).all())
+            and torch.equal(got[11], want[11])):
+        fail("layernorm gives rows with NaN, inf or zeros otherwise than "
+             "the plain version")
+    print(f"layernorm: at widths {sorted(widths)}, centred rows within "
+          f"{worst['ulps']:.2f} ulps of the plain version's largest |y| "
+          f"(rows with offsets {worst['offset_ulps']:.2f}), error against "
+          f"float64 at most {worst['rms_ratio']:.3f}x its (root mean "
+          f"square; largest {worst['max_ratio']:.2f}x); NaN / inf / zero "
+          f"rows as the plain version")
+
+    # the two models' forwards: launches, counters, logits; each call's
+    # (rows an image, width) for the timings below
+    fused = fused_passes()
+    calls = {}
+    x = torch.randn(2, 3, 224, 224, device=dev, generator=gen)
+    models = {"ViT-B/16": (lambda: vit.init_random(
+        vit.make_model("vit_base_patch16_224"), 0), LN_VIT_B16),
+        "Swin-B": (lambda: common.init_flax_default(
+            swin.SwinTransformer(**swin.ARCHS["swin_base"]), 0), LN_SWIN_B)}
+    for name, (make, norms) in models.items():
+        model = make().to(dev)
+        seen = calls[name] = []
+
+        def spy(y, scale, bias, eps):
+            seen.append((y.numel() // y.shape[-1] // 2, y.shape[-1]))
+            return kl.layernorm(y, scale, bias, eps)
+
+        fused.zero()
+        before = kl.layernorm.launches
+        counts = trace.counters()
+        common.layernorm = spy
+        try:
+            with torch.inference_mode():
+                got = model(x)
+        finally:
+            common.layernorm = kl.layernorm
+        launches = kl.layernorm.launches - before
+        after = trace.counters()
+        rows, fused_rows = (after.get(k, 0) - counts.get(k, 0) for k in (
+            "layernorm_rows", "layernorm_fused_rows"))
+        want = model(x).detach()        # records a graph: the separate ops
+        if kl.layernorm.launches - before != launches:
+            fail(f"the {name} forward recording a graph launched layernorm")
+        gap = ((got - want).abs().max() / want.abs().max()).item()
+        if not (launches == norms == fused.want()["layernorm"]
+                == len(seen) and rows == fused_rows > 0 and gap <= 1e-4):
+            fail(f"a {name} forward under inference launched layernorm "
+                 f"{launches} times (expected {norms}, FusedPasses "
+                 f"{fused.want()['layernorm']}), fused {fused_rows} of "
+                 f"{rows} rows, logits {gap:.3e} of the largest from the "
+                 f"separate ops")
+        print(f"layernorm: a {name} forward at [2, 3, 224, 224] under "
+              f"inference launches {launches} (every LayerNorm, {rows} "
+              f"rows, all fused), logits within {gap:.3e} of the largest "
+              f"from the separate ops")
+        del model, got, want
+
+    def library(y, sc, b):
+        return F.layer_norm(y, (y.shape[-1],), sc, b, 1e-5)
+
+    def timed(fn, sets, launches=50):
+        cycle = itertools.cycle(sets)
+        return device_ms(torch, lambda: fn(*next(cycle)), launches)
+
+    def sets_of(rows, c):
+        one = rows * c * 4
+        return [operands(rows, c)
+                for _ in range(max(1, -(-120_000_000 // one)))]
+
+    by_shape = []
+    totals = {}
+    for name, seen in calls.items():
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                             0.0)
+        for per_image, c in sorted(set(seen), key=seen.index):
+            count = seen.count((per_image, c))
+            rows = 180 * per_image
+            sets = sets_of(rows, c)
+            row = {"model": name, "shape": [rows, c], "count": count,
+                   "ms": timed(lambda *a: kl.layernorm(*a, 1e-5), sets),
+                   "plain_ms": timed(
+                       lambda *a: kl.layernorm_plain(*a, 1e-5), sets),
+                   "library_ms": timed(library, sets),
+                   "bound_ms": layernorm_bound_ms(rows, c)}
+            del sets
+            for k in sums:
+                sums[k] += count * row[k]
+            by_shape.append(row)
+            print(f"layernorm {name} {row['shape']} (x{count}): kernel "
+                  f"{row['ms'] * 1e3:.2f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us "
+                  f"({row['bound_ms'] / row['ms']:.1%}), plain "
+                  f"{row['plain_ms'] * 1e3:.2f} us, library "
+                  f"{row['library_ms'] * 1e3:.2f} us")
+        totals[name] = sums
+        print(f"layernorm over one {name} 180-row forward's {len(seen)} "
+              f"passes: kernel {sums['ms']:.4f} ms, bound "
+              f"{sums['bound_ms']:.4f} ms "
+              f"({sums['bound_ms'] / sums['ms']:.1%}), plain "
+              f"{sums['plain_ms']:.4f} ms, library "
+              f"{sums['library_ms']:.4f} ms")
+
+    # Swin-B's patch norm: the patch convolution's NCHW output seen NHWC
+    conv = torch.randn(180, 128, 56, 56, device=dev, generator=gen)
+    view = conv.permute(0, 2, 3, 1)
+    _, sc, b = operands(1, 128)
+    patch = {"strided_plain_ms": device_ms(
+        torch, lambda: kl.layernorm_plain(view, sc, b, 1e-5), 20),
+        "copy_and_kernel_ms": device_ms(
+        torch, lambda: kl.layernorm(view.contiguous(), sc, b, 1e-5), 20)}
+    del conv, view
+    print(f"layernorm: Swin-B's patch norm at 180 rows on the strided "
+          f"view: separate ops {patch['strided_plain_ms']:.4f} ms, a "
+          f"contiguous copy and the kernel "
+          f"{patch['copy_and_kernel_ms']:.4f} ms")
+
+    # each model's whole 180-row forward, the kernel against the separate
+    # ops (the gate refused everywhere)
+    forward_ms = {}
+    gate = common._fused_layernorm
+    for name, (make, _) in models.items():
+        model = make().to(dev)
+        batch = torch.randn(180, 3, 224, 224, device=dev, generator=gen)
+        ms = {}
+        with torch.inference_mode():
+            for label in ("kernel", "separate ops", "separate ops",
+                          "kernel"):
+                common._fused_layernorm = (
+                    gate if label == "kernel" else lambda *a: False)
+                try:
+                    ms.setdefault(label, []).append(device_ms(
+                        torch, lambda: model(batch), launches=2, reps=3))
+                finally:
+                    common._fused_layernorm = gate
+        forward_ms[name] = {k: statistics.mean(v) for k, v in ms.items()}
+        print(f"{name} 180-row forward under inference: "
+              f"{forward_ms[name]['kernel']:.2f} ms with the kernel, "
+              f"{forward_ms[name]['separate ops']:.2f} ms with the "
+              f"separate ops (two each, interleaved)")
+        del model, batch
+    vit_sums = totals["ViT-B/16"]
+    return dict(name="layernorm", route="cuda",
+                source="xai_tpu_torch/csrc/layernorm.cu",
+                replaces="none: XLA fused LayerNorm on the TPU",
+                worst=worst, bound_by="bytes", by_shape=by_shape,
+                totals=totals, patch_norm=patch, forward_ms=forward_ms,
+                **vit_sums)
+
+
 # the driver paths of phase 4: (label, flags, images in the stream,
 # --image_count, --image_batch).  Random weights usually give noise images
 # one class, so a batched path's --image_count is 1000x its images: the
@@ -980,8 +1269,8 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    epilogues = fused_epilogues()
-    epilogues.launches = 0
+    fused = fused_passes()
+    fused.zero()
     forwards = trace.counters().get("battery_forwards", 0)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
@@ -1017,7 +1306,7 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
     batteries = flushes * (ep.battery_mesh(dev, batch).shape["data"]
                            if batch > 1 else 1)
     if want is not None:
-        want = dict(want(), bn_act=epilogues.launches)
+        want = dict(want(), **fused.want())
         if launches != want:
             fail(f"the {label} main path launched {launches}, expected "
                  f"{want}")
@@ -1050,13 +1339,18 @@ def run_main_path(torch, dev, out_dir, label, flags, n_images, count,
              f"{launches['quickshift_parents']} times on the {label} "
              f"main path, expected {want_qs}")
     # every battery forward is a fused R101 forward
-    if launches["bn_act"] != epilogues.launches or (
+    expected = fused.want()
+    if launches["bn_act"] != expected["bn_act"] or (
             model == "R101" and launches["bn_act"]
             < R101_EPILOGUES * forwards):
         fail(f"bn_act launched {launches['bn_act']} times on the {label} "
-             f"main path, expected {epilogues.launches} (its forwards), "
+             f"main path, expected {expected['bn_act']} (its forwards), "
              f"at least {R101_EPILOGUES} a battery forward on R101 "
              f"({forwards})")
+    if launches["layernorm"] != expected["layernorm"]:
+        fail(f"layernorm launched {launches['layernorm']} times on the "
+             f"{label} main path, expected {expected['layernorm']} (its "
+             f"forwards' LayerNorms)")
     print(f"{label} main path: {scored} of {n_images} images scored in "
           f"{flushes} {'flushes of ' + str(batch) if batch > 1 else 'runs'}"
           f", total {total:.3f} s, attribution "
@@ -1598,20 +1892,21 @@ def optional_packages() -> dict:
 
 
 NO_LAUNCHES = {"blur_planes": 0, "reveal_batch": 0, "quickshift_parents": 0,
-               "bn_act": 0}
+               "bn_act": 0, "layernorm": 0}
 
 
 def run_path(torch, label, fn, want):
     """Drive one path, every kernel counter zeroed just before and read
     just after; fails unless each kernel launched as ``want`` says (a
     dict, or a function that returns it once the path has run, for the
-    counts that the path's own choices set); bn_act's expected count is
-    FusedEpilogues'.  Returns (fn's result, the launches)."""
+    counts that the path's own choices set); bn_act's and layernorm's
+    expected counts are FusedPasses'.  Returns (fn's result, the
+    launches)."""
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    epilogues = fused_epilogues()
-    epilogues.launches = 0
+    fused = fused_passes()
+    fused.zero()
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
@@ -1622,7 +1917,7 @@ def run_path(torch, label, fn, want):
     print(log.getvalue(), end="")
     if callable(want):
         want = want()
-    want = dict(want, bn_act=epilogues.launches)
+    want = dict(want, **fused.want())
     if launches != want:
         fail(f"the {label} path launched {launches}, expected {want}")
     print(f"{label} path: {total:.3f} s, launches {json.dumps(launches)}")
@@ -3898,8 +4193,8 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
     counter zeroed just before a run and read just after, and prints one
     ``TWO_PROCESS {...}`` line: its rank, and for each run the dataset
     indices it attributed (its stripe), what the driver returned, its
-    launches, the bn_act launches its forwards should make
-    (FusedEpilogues) and seconds (the sweep's stripe: the runs it
+    launches, the bn_act and layernorm launches its forwards should make
+    (FusedPasses) and seconds (the sweep's stripe: the runs it
     took)."""
     import torch
 
@@ -3912,7 +4207,7 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
           f"{torch.cuda.device_count()}", flush=True)
     dev = resolve_device(device)
     wrappers = kernel_wrappers()
-    epilogues = fused_epilogues()
+    fused = fused_passes()
     out = {"rank": rank, "runs": {}}
     for label, driver, flags, _ in json.loads(runs):
         mod, entry = driver_entry(driver)
@@ -3931,7 +4226,7 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
             mod.image_generator = spy
         for w in wrappers.values():
             w.launches = 0
-        epilogues.launches = 0
+        fused.zero()
         t0 = time.perf_counter()
         try:
             returned = entry(args, device=dev)
@@ -3945,7 +4240,7 @@ def two_process_worker(rank: int, port: int, out_dir: str, device: str,
         out["runs"][label] = {
             "stripe": sorted(set(stripe)), "returned": returned,
             "launches": {n: w.launches for n, w in wrappers.items()},
-            "want_bn_act": epilogues.launches,
+            "want": fused.want(),
             "seconds": time.perf_counter() - t0}
     out["seconds"] = time.perf_counter() - t_start
     print("TWO_PROCESS " + json.dumps(out), flush=True)
@@ -4033,15 +4328,16 @@ def check_two_processes(torch, dev, out_dir, by_path) -> dict:
                 total[n] += c
         summed = {n: sum(r["launches"][n] for r in runs)
                   for n in NO_LAUNCHES}
-        # bn_act launches as its forwards say: each process may run
-        # forwards of its own beside its stripe's
-        want = dict(by_path[single],
-                    bn_act=sum(r["want_bn_act"] for r in runs))
+        # the fused passes launch as their forwards say: each process may
+        # run forwards of its own beside its stripe's
+        want = dict(by_path[single], **{
+            n: sum(r["want"][n] for r in runs) for n in FUSED})
         if summed != want:
             fail(f"two-process {label}: the processes launched "
                  f"{[r['launches'] for r in runs]}, summed {summed}; the "
-                 f"single-process run {by_path[single]}, bn_act "
-                 f"{want['bn_act']} by their forwards")
+                 f"single-process run {by_path[single]}, fused passes "
+                 f"{json.dumps({n: want[n] for n in FUSED})} by their "
+                 f"forwards")
         if runs[0]["returned"] != runs[1]["returned"] and driver != "sweep":
             fail(f"two-process {label}: the processes returned "
                  f"{runs[0]['returned']} and {runs[1]['returned']}")
@@ -4239,6 +4535,7 @@ def check_device_guard(torch) -> None:
         return
     from xai_tpu_torch.kernels.blur import blur_planes
     from xai_tpu_torch.kernels.bn_act import bn_act
+    from xai_tpu_torch.kernels.layernorm import layernorm
     from xai_tpu_torch.kernels.quickshift import quickshift_parents
     from xai_tpu_torch.kernels.reveal import reveal_batch
 
@@ -4255,7 +4552,9 @@ def check_device_guard(torch) -> None:
             x.permute(0, 2, 3, 1).contiguous(), 0.5 / 36, 36.0, 0.5, w=6,
             wd=4),
         "bn_act": lambda: bn_act(x, x[0, :, 0, 0].contiguous(),
-                                 x[1, :, 0, 0].contiguous(), x)}
+                                 x[1, :, 0, 0].contiguous(), x),
+        "layernorm": lambda: layernorm(x, x[0, 0, 0].contiguous(),
+                                       x[1, 0, 0].contiguous(), 1e-6)}
     before = torch.cuda.current_device()
     for name, launch in launches.items():
         launch()
@@ -4477,8 +4776,8 @@ WALK_RUNNER = r"""
 import json, runpy, sys, time
 import torch
 import chip_smoke
-from xai_tpu_torch.kernels import blur, bn_act, quickshift, reveal
-epilogues = chip_smoke.fused_epilogues()
+from xai_tpu_torch.kernels import blur, bn_act, layernorm, quickshift, reveal
+fused = chip_smoke.fused_passes()
 module, *argv = sys.argv[1:]
 sys.argv = [module, *argv]
 t0 = time.perf_counter()
@@ -4491,8 +4790,9 @@ print("WALKTHROUGH " + json.dumps({
                  "reveal_batch": reveal.reveal_batch.launches,
                  "quickshift_parents":
                      quickshift.quickshift_parents.launches,
-                 "bn_act": bn_act.bn_act.launches},
-    "want_bn_act": epilogues.launches}))
+                 "bn_act": bn_act.bn_act.launches,
+                 "layernorm": layernorm.layernorm.launches},
+    "want": fused.want()}))
 """
 WALK_TIMEOUT_S = 300
 # MDA's rescoring (methods/mda.py find_deletion_patches): an insertion and
@@ -4571,8 +4871,8 @@ def drive_walkthroughs(torch, dev, out_dir, card) -> dict:
     walkthrough at full width on the JPEG through its module's main, as
     `python -m` runs it, in a process of its own (WALK_RUNNER).  Each must
     exit 0, print its maps' or scores' lines with finite numbers and
-    launch each kernel as walkthroughs() says (bn_act as FusedEpilogues
-    counts its forwards).  Returns the launches by
+    launch each kernel as walkthroughs() says (bn_act and layernorm as
+    FusedPasses counts its forwards).  Returns the launches by
     path."""
     here = os.path.dirname(os.path.abspath(__file__))
     jpg, png = write_walk_images(out_dir)
@@ -4601,7 +4901,7 @@ def drive_walkthroughs(torch, dev, out_dir, card) -> dict:
                 v and all(math.isfinite(x) for x in v) for v in nums):
             fail(f"{label}: {len(nums)} lines with {marker!r} ({lines} "
                  f"expected) or a number not finite: {nums}")
-        want = dict(want, bn_act=rec["want_bn_act"])
+        want = dict(want, **rec["want"])
         if rec["launches"] != want:
             fail(f"the {label} path launched {rec['launches']}, expected "
                  f"{want}")
@@ -4737,6 +5037,7 @@ def main() -> None:
         rows = check_kernels(torch, dev, x_hwc)
         rows.append(check_quickshift(torch, dev))
         rows.append(check_bn_act(torch, dev))
+        rows.append(check_layernorm(torch, dev))
 
     by_path = {}
     with tempfile.TemporaryDirectory() as out_dir:

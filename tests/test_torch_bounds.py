@@ -83,3 +83,16 @@ def test_bn_act_bound_counts_each_byte_once():
     assert kb.bn_act_bound_ms(180, 2048, 7, 7, True, True) == pytest.approx(
         (3 * one + 4 * 2048 * 4) / kb.HBM_BYTES_PER_S * 1e3)
 
+
+
+def test_layernorm_bound_counts_each_byte_once():
+    """ViT-B/16's LayerNorm over a 180-row forward's 35,460 token rows:
+    109.0 MB read and as much written, 65.04 us at 3.35 TB/s; Swin-B's
+    first stage, 564,480 rows of 128, 172.55 us."""
+    vit = 180 * 197 * 768 * 4
+    assert kb.layernorm_bound_ms(180 * 197, 768) == pytest.approx(
+        (2 * vit + 2 * 768 * 4) / kb.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert kb.layernorm_bound_ms(180 * 197, 768) * 1e3 == pytest.approx(
+        65.037, abs=5e-3)
+    assert kb.layernorm_bound_ms(180 * 3136, 128) * 1e3 == pytest.approx(
+        172.546, abs=5e-3)

@@ -146,7 +146,8 @@ def test_blur_host_taps_are_what_the_kernel_reads(klen, nsig):
         assert taps.flags["C_CONTIGUOUS"] and (taps > 0).all()
 
 
-@pytest.mark.parametrize("name", ["blur", "reveal", "quickshift", "bn_act"])
+@pytest.mark.parametrize("name", ["blur", "reveal", "quickshift", "bn_act",
+                                  "layernorm"])
 def test_build_names_one_library_per_source(name):
     # a library's name hashes its source and the nvcc flags: an edited
     # source is rebuilt, never loaded stale; nothing is built to name it

@@ -29,7 +29,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("blur", "reveal", "quickshift", "bn_act")
+KERNELS = ("blur", "reveal", "quickshift", "bn_act", "layernorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a mesh battery launches from one host thread a data shard

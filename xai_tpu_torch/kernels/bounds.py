@@ -89,3 +89,11 @@ def bn_act_bound_ms(n: int, c: int, h: int, w: int, residual: bool = False,
         4 if residual_bn else 2) * c * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
 
+
+
+def layernorm_bound_ms(rows: int, c: int) -> float:
+    """Bound ms of one LayerNorm pass (``kernels/layernorm.py``) over a
+    [rows, c] float32 tensor (bytes): the input read once, the output
+    written once, and the scale and bias read once."""
+    nbytes = 2 * rows * c * 4 + 2 * c * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.layernorm import fits, layernorm, layernorm_plain
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from ..utils import trace
 
@@ -253,11 +254,25 @@ class FoldedBN(nn.Module):
         return x * self.scale[:, None, None] + self.bias[:, None, None]
 
 
+def _fused_layernorm(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor) -> bool:
+    """Whether a LayerNorm call takes the fused kernel: no autograd graph
+    is recorded (the kernel has no backward), and the kernel takes the
+    operands (:func:`kernels.layernorm.fits`: a contiguous CUDA float32
+    ``x`` of a width it covers, float32 scale and bias)."""
+    return not torch.is_grad_enabled() and fits(x, scale, bias)
+
+
 class LayerNorm(nn.Module):
     """``flax.linen.LayerNorm(epsilon=eps)`` over the last axis as flax
     computes it: float32 statistics with the fast variance max(0, E[x^2] -
     E[x]^2), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
-    float32, cast back to the compute dtype."""
+    float32, cast back to the compute dtype.  Where
+    :func:`_fused_layernorm` holds, one pass of ``kernels/layernorm.py``,
+    which differs from the separate ops only by the order of its two
+    sums; else the separate ops.  Counts its token rows in
+    ``layernorm_rows``, and those of the fused calls in
+    ``layernorm_fused_rows``."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -266,12 +281,12 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        x32 = x.float()
-        mu = x32.mean(-1, keepdim=True)
-        var = ((x32 * x32).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale.float()
-        y = (x32 - mu) * mul + self.bias.float()
-        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+        rows = math.prod(x.shape[:-1])
+        trace.count("layernorm_rows", rows)
+        if _fused_layernorm(x, self.scale, self.bias):
+            trace.count("layernorm_fused_rows", rows)
+            return layernorm(x, self.scale, self.bias, self.eps)
+        return layernorm_plain(x, self.scale, self.bias, self.eps)
 
 
 @torch.no_grad()

@@ -191,8 +191,13 @@ class SwinTransformer(nn.Module):
 
     def forward(self, x, taps: bool = False):
         tap = {}
-        y = self.patch_norm(conv_nhwc(self.patch_embed,
-                                      x.permute(0, 2, 3, 1)))
+        y = conv_nhwc(self.patch_embed, x.permute(0, 2, 3, 1))
+        if y.is_cuda and not torch.is_grad_enabled():
+            # the NHWC rows in memory order, so that the patch norm takes
+            # the fused LayerNorm: one copy and one pass in place of its
+            # separate ops over a strided view
+            y = y.contiguous()
+        y = self.patch_norm(y)
         for s, depth in enumerate(self.depths):
             if s > 0:
                 y = getattr(self, f"merge{s}")(y)

@@ -35,7 +35,10 @@ grid layers), and ``masked_window_rows`` those of the calls that carry a
 shift mask (Swin's shifted blocks).  ``battery_forwards`` counts the
 forwards of the battery's reveal chunks (``metrics/curves.py _battery``:
 a chunk's three passes share a forward up to 180 rows, so a 224 px
-battery runs 5 image by image and 15 at four images).  A kernel
+battery runs 5 image by image and 15 at four images).
+``layernorm_rows`` counts the token rows of every ``models/common.py
+LayerNorm`` call, and ``layernorm_fused_rows`` those of the calls that
+took the fused kernel (``kernels/layernorm.py``).  A kernel
 wrapper counts its launches in its own ``.launches`` attribute, under the
 same lock (:func:`count_launches`).
 """
