@@ -19,18 +19,33 @@ Windows shrink to ``min(window, H, W)``; the window sizes, as the bias
 tables' shapes, are fixed by ``img_hw`` at construction.  Submodule names
 follow the JAX parameter tree (``stem_conv1``, ``stage{s}_block{b}.mbconv
 .conv_a``, ``.window_attn.attn.rel_bias_table``, ``head_pre``, ...).
+
+Counters (``utils/trace.py``), a model row at maxvit_t's 224 px:
+``window_attn_rows`` 17,836 (``swin.WindowAttention`` counts the block
+and the grid layers' groups x tokens alike: 2 x 3136 + 2 x 784 + 5 x 196 +
+2 x 49 a layer kind); ``grid_attn_rows`` 8,918, the grid layers' share of
+it; ``mbconv_rows`` 21,413, each MBConv's batch x input pixels, the
+resolution its expansion, BN and GELU run at (12544 + 3136 in stage 0,
+3136 + 784, 784 + 4 x 196, 196 + 49).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import trace
 from .common import (FoldedBN, LayerNorm, ModelBundle, ModelMeta,
                      conv_nhwc, init_flax_default)
 from .swin import WindowAttention, window_partition, window_reverse
+
+# torchvision's maxvit_t, the ``MAXVIT`` bundle's form (``MaxViTTV``'s
+# arguments)
+TV_ARCH = dict(depths=(2, 2, 5, 2), dims=(64, 128, 256, 512), stem_dim=64,
+               window=7, head_dim=32, num_classes=1000, img_hw=224)
 
 
 def grid_partition(x, gs: int):
@@ -65,7 +80,8 @@ class SqueezeExcite(nn.Module):
 class MBConv(nn.Module):
     """Paper form: LayerNorm, 1x1 expand + GELU, 3x3 depthwise (stride) +
     GELU, SE, 1x1 project; the shortcut a VALID stride x stride average
-    pool and a 1x1 conv where the stride or the width changes."""
+    pool and a 1x1 conv where the stride or the width changes.  Counts
+    its input's batch x pixels into ``mbconv_rows``."""
 
     def __init__(self, cin: int, dim: int, stride: int = 1,
                  expansion: int = 4):
@@ -82,6 +98,7 @@ class MBConv(nn.Module):
                          if stride > 1 or cin != dim else None)
 
     def forward(self, x):
+        trace.count("mbconv_rows", math.prod(x.shape[:-1]))
         h = F.gelu(conv_nhwc(self.expand, self.pre_norm(x)))
         h = F.gelu(conv_nhwc(self.dw, h))
         h = conv_nhwc(self.proj, self.se(h))
@@ -97,7 +114,8 @@ class MBConvTV(nn.Module):
     """torchvision's MBConv (eval): folded-BN pre-norm, ``conv_a`` 1x1 + BN
     + GELU, ``conv_b`` 3x3 depthwise (stride) + BN + GELU, SE (SiLU,
     squeeze dim // 4), ``conv_c`` 1x1 with bias; the stride-2 shortcut an
-    AvgPool2d(3, 2, padding 1) counting its padding, then a 1x1 conv."""
+    AvgPool2d(3, 2, padding 1) counting its padding, then a 1x1 conv.
+    Counts its input's batch x pixels into ``mbconv_rows``."""
 
     def __init__(self, cin: int, dim: int, stride: int = 1,
                  expansion: int = 4):
@@ -116,6 +134,7 @@ class MBConvTV(nn.Module):
                          if stride != 1 or cin != dim else None)
 
     def forward(self, x):
+        trace.count("mbconv_rows", math.prod(x.shape[:-1]))
         h = F.gelu(self.bn_a(conv_nhwc(self.conv_a, self.pre_norm(x))))
         h = F.gelu(self.bn_b(conv_nhwc(self.conv_b, h)))
         h = conv_nhwc(self.conv_c, self.se(h))
@@ -129,7 +148,9 @@ class MBConvTV(nn.Module):
 
 class AttnLayer(nn.Module):
     """Pre-norm window (``grid=False``) or grid attention and a pre-norm
-    4x MLP, each with its skip, at a ``res`` x ``res`` grid."""
+    4x MLP, each with its skip, at a ``res`` x ``res`` grid.  A grid layer
+    counts its groups x tokens a group (batch x pixels) into
+    ``grid_attn_rows``."""
 
     def __init__(self, dim: int, num_heads: int, window: int, res: int,
                  grid: bool = False, scale: Optional[float] = None):
@@ -147,6 +168,7 @@ class AttnLayer(nn.Module):
         ws = self.ws
         y = self.norm(x)
         if self.grid:
+            trace.count("grid_attn_rows", b * h * w)
             a = grid_reverse(self.attn(grid_partition(y, ws)), ws, b, h, w)
         else:
             a = window_reverse(self.attn(window_partition(y, ws)), ws, b, h,
@@ -257,9 +279,9 @@ def make_bundle(state: Optional[dict] = None, seed: int = 0,
                 batch_size: int = 25, variant: str = "tv",
                 device=None) -> ModelBundle:
     """The MAXVIT bundle at 224 px: ``variant="tv"`` (the default) is
-    torchvision's form, ``"paper"`` the paper's; seeded random weights in
-    flax's scheme, or ``state``, on ``device``."""
-    model = MaxViTTV() if variant == "tv" else MaxViT()
+    torchvision's form at ``TV_ARCH``, ``"paper"`` the paper's; seeded
+    random weights in flax's scheme, or ``state``, on ``device``."""
+    model = MaxViTTV(**TV_ARCH) if variant == "tv" else MaxViT()
     init_flax_default(model, seed)
     if state is not None:
         model.load_state_dict(state)

@@ -52,8 +52,9 @@ rollout, t_attn, attn_ig, attn_attr, bi_attn, InFlow, t_attr, TIS,
 VIT_CX, MDA, MDA_dense; or ``--model CLIP16`` / ``CLIP32`` with eclip,
 eclip_nograd, eclip_wo, maskclip, grad_cam, selfattn, game, rollout,
 lrp, m2ib, surgery, rise; or any other name of the extended zoo, such
-as ``--model swin_base --attr_func ig``, which takes the family of its
-bundle's meta (``runners/common.py``); add
+as ``--model swin_base --attr_func ig`` or ``--model MAXVIT --attr_func
+ig`` (torchvision's maxvit_t), which takes the family of its bundle's
+meta (``runners/common.py``); add
 ``--image_batch 4 --attr_dtype bf16`` for the batched bf16 path).
 """
 from __future__ import annotations

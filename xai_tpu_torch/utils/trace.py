@@ -32,10 +32,17 @@ methods that run the module themselves.  ``window_attn_rows`` counts the
 query rows of windowed attention (``models/swin.py WindowAttention``:
 windows times tokens a window, in Swin's blocks and MaxViT's block and
 grid layers), and ``masked_window_rows`` those of the calls that carry a
-shift mask (Swin's shifted blocks).  ``battery_forwards`` counts the
-forwards of the battery's reveal chunks (``metrics/curves.py _battery``:
-a chunk's three passes share a forward up to 180 rows, so a 224 px
-battery runs 5 image by image and 15 at four images).
+shift mask (Swin's shifted blocks); 11,466 and 5,684 a model row at
+Swin-B's 224 px, 17,836 and 0 at MaxViT-T's.  ``grid_attn_rows`` counts
+the query rows of MaxViT's grid attention (``models/maxvit.py
+AttnLayer``: groups times tokens a group, 8,918 a row at 224 px, a part
+of ``window_attn_rows``), and ``mbconv_rows`` the input pixels of each of
+its MBConv calls (batch times input pixels, the resolution of the
+expansion's convolution, BN and GELU: 21,413 a row at 224 px).
+``battery_forwards`` counts the forwards of the battery's reveal chunks
+(``metrics/curves.py _battery``: a chunk's three passes share a forward
+up to 180 rows, so a 224 px battery runs 5 image by image and 15 at four
+images).
 ``layernorm_rows`` counts the token rows of every ``models/common.py
 LayerNorm`` call, and ``layernorm_fused_rows`` those of the calls that
 took the fused kernel (``kernels/layernorm.py``).  A kernel
