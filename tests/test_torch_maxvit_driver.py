@@ -1,8 +1,9 @@
 """MaxViT on the perturbation path, on the CPU: a small torchvision-form
 MaxViT against the benchmark's plain reference
 (``portbench/reference/maxvit.py``) on the benchmark's seeded weights, the
-reference against a torchvision-naming oracle, the counters, the zero
-image's gradient, and one driver step.
+reference against a torchvision-naming oracle, the counters, the dense
+NHWC layout of both forms' activations, the zero image's gradient, and
+one driver step.
 
 The small MaxViT (``portbench/tests/configs/tiny_maxvit.json``) is 32 px,
 stem 16, stages 2-1 at widths 16-32 of heads of 8, partition 4: stage
@@ -27,13 +28,15 @@ from xai_tpu_torch.convert import torch_import as TI
 from xai_tpu_torch.convert.from_jax import state_dict_from_jax
 from xai_tpu_torch.methods.batch import ig_lig_batch
 from xai_tpu_torch.models import maxvit
-from xai_tpu_torch.models.common import ModelBundle, ModelMeta
+from xai_tpu_torch.models.common import LayerNorm, ModelBundle, ModelMeta
+from xai_tpu_torch.models.swin import WindowAttention
 from xai_tpu_torch.registry import get_attribution
 from xai_tpu_torch.runners import common as TC
 from xai_tpu_torch.runners.evaluate_perturbation import kept_step
 from xai_tpu_torch.utils import trace
 
 from test_maxvit_convert import TVMaxVit
+from test_torch_maxvit_card import small_maxvit
 from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 PORTBENCH = Path(__file__).resolve().parent.parent / "portbench"
@@ -154,8 +157,47 @@ def test_counters_follow_the_layers(small):
     assert grew["window_attn_rows"] == 3 * 2 * (64 + 64 + 16)
     assert grew["grid_attn_rows"] == 3 * (64 + 64 + 16)
     assert grew["mbconv_rows"] == 3 * (256 + 64 + 64)
+    assert grew["mbconv_dense_rows"] == 3 * (256 + 64 + 64)
     assert grew["model_rows"] == 3
     assert grew.get("masked_window_rows", 0) == 0
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["no_grad", "graph"])
+@pytest.mark.parametrize("form", ["tv", "paper"])
+def test_activations_are_dense_nhwc(form, graph):
+    """From the stem on every activation is dense ``[B, H, W, C]`` memory,
+    with or without a recorded graph: each MBConv, attention layer,
+    LayerNorm and linear gets a contiguous input, ``mbconv_dense_rows``
+    grows as ``mbconv_rows`` does, and the only batched products are the
+    attention's two (``q @ k^T``, ``@ v``) a ``WindowAttention`` call: a
+    linear on a strided 4-D input runs as a GEMM batched over image
+    rows.  The 1x1 convolutions are GEMMs: 7 convolutions are left, the
+    stem's 2, 3 depthwise and the 2 pooled shortcuts."""
+    module = small_maxvit(form)
+    kinds = (maxvit.MBConv, maxvit.MBConvTV, maxvit.AttnLayer, LayerNorm,
+             nn.Linear, WindowAttention)
+    inputs = []
+    for name, mod in module.named_modules():
+        if isinstance(mod, kinds):
+            mod.register_forward_pre_hook(
+                lambda mod, inp, name=name: inputs.append(
+                    (name, type(mod), inp[0].is_contiguous())))
+    x = torch.randn(2, 3, 32, 32, requires_grad=graph)
+    before = trace.counters()
+    with torch.set_grad_enabled(graph), \
+            torch.autograd.profiler.profile() as prof:
+        module(x)
+    grew = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
+    assert {kind for _, kind, _ in inputs} == set(kinds) - {
+        maxvit.MBConv if form == "tv" else maxvit.MBConvTV}
+    assert [name for name, _, dense in inputs if not dense] == []
+    assert grew["mbconv_dense_rows"] == grew["mbconv_rows"] == \
+        2 * (256 + 64 + 64)
+    attn_calls = sum(kind is WindowAttention for _, kind, _ in inputs)
+    assert attn_calls == 6
+    ops = [e.name for e in prof.function_events]
+    assert ops.count("aten::bmm") == 2 * attn_calls
+    assert ops.count("aten::conv2d") == 7
 
 
 def test_maxvit_t_counts_per_row():

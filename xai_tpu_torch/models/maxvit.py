@@ -26,7 +26,11 @@ and the grid layers' groups x tokens alike: 2 x 3136 + 2 x 784 + 5 x 196 +
 2 x 49 a layer kind); ``grid_attn_rows`` 8,918, the grid layers' share of
 it; ``mbconv_rows`` 21,413, each MBConv's batch x input pixels, the
 resolution its expansion, BN and GELU run at (12544 + 3136 in stage 0,
-3136 + 784, 784 + 4 x 196, 196 + 49).
+3136 + 784, 784 + 4 x 196, 196 + 49); ``mbconv_dense_rows`` the same
+where the input is dense ``[B, H, W, C]`` memory, which it is on every
+call: the forward makes the stem's input contiguous, the 1x1
+convolutions run as GEMMs over the pixels, the 3x3 ones read and write
+channels-last, and the shortcut's pool comes back dense.
 """
 from __future__ import annotations
 
@@ -77,11 +81,40 @@ class SqueezeExcite(nn.Module):
         return x * torch.sigmoid(self.fc2(s))[:, None, None, :]
 
 
+def _pointwise(conv: nn.Conv2d, x):
+    """A 1x1 convolution of a dense ``[B, H, W, C]`` batch as the GEMM it
+    is over the pixels: one ``addmm`` with the bias.  cuDNN's float32
+    channels-last path transposes to NCHW and back around its kernel
+    (4.70 ms against this GEMM's 2.28 ms at [180, 64, 112, 112] to 256
+    channels, on an H100)."""
+    return F.linear(x, conv.weight.flatten(1), conv.bias)
+
+
+def _pooled_shortcut(conv: nn.Module, x, *pool, **pool_kw):
+    """``conv`` of the average pool of an ``[B, H, W, C]`` batch, returned
+    dense ``[B, H', W', C']``.  The pool reads NCHW memory, a copy of
+    ``x``: on CUDA, PyTorch's channels-last ``avg_pool2d`` backward gives
+    a wrong input gradient for torchvision's padded 3x3 pool (0.94 of the
+    largest off, on an H100 with torch 2.11; the paper form's 2x2 pool
+    was right), and the NCHW forward kernel is the faster one."""
+    x = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), *pool, **pool_kw)
+    return conv(x).permute(0, 2, 3, 1).contiguous()
+
+
+def _count_rows(x):
+    """An MBConv input's batch x pixels into ``mbconv_rows``, and into
+    ``mbconv_dense_rows`` where it is dense ``[B, H, W, C]`` memory."""
+    rows = math.prod(x.shape[:-1])
+    trace.count("mbconv_rows", rows)
+    if x.is_contiguous():
+        trace.count("mbconv_dense_rows", rows)
+
+
 class MBConv(nn.Module):
     """Paper form: LayerNorm, 1x1 expand + GELU, 3x3 depthwise (stride) +
     GELU, SE, 1x1 project; the shortcut a VALID stride x stride average
     pool and a 1x1 conv where the stride or the width changes.  Counts
-    its input's batch x pixels into ``mbconv_rows``."""
+    its input's rows (:func:`_count_rows`)."""
 
     def __init__(self, cin: int, dim: int, stride: int = 1,
                  expansion: int = 4):
@@ -98,15 +131,14 @@ class MBConv(nn.Module):
                          if stride > 1 or cin != dim else None)
 
     def forward(self, x):
-        trace.count("mbconv_rows", math.prod(x.shape[:-1]))
-        h = F.gelu(conv_nhwc(self.expand, self.pre_norm(x)))
+        _count_rows(x)
+        h = F.gelu(_pointwise(self.expand, self.pre_norm(x)))
         h = F.gelu(conv_nhwc(self.dw, h))
-        h = conv_nhwc(self.proj, self.se(h))
-        if self.shortcut is not None:
-            if self.stride > 1:
-                x = F.avg_pool2d(x.permute(0, 3, 1, 2), self.stride,
-                                 self.stride).permute(0, 2, 3, 1)
-            x = conv_nhwc(self.shortcut, x)
+        h = _pointwise(self.proj, self.se(h))
+        if self.stride > 1:
+            x = _pooled_shortcut(self.shortcut, x, self.stride, self.stride)
+        elif self.shortcut is not None:
+            x = _pointwise(self.shortcut, x)
         return x + h
 
 
@@ -115,7 +147,7 @@ class MBConvTV(nn.Module):
     + GELU, ``conv_b`` 3x3 depthwise (stride) + BN + GELU, SE (SiLU,
     squeeze dim // 4), ``conv_c`` 1x1 with bias; the stride-2 shortcut an
     AvgPool2d(3, 2, padding 1) counting its padding, then a 1x1 conv.
-    Counts its input's batch x pixels into ``mbconv_rows``."""
+    Counts its input's rows (:func:`_count_rows`)."""
 
     def __init__(self, cin: int, dim: int, stride: int = 1,
                  expansion: int = 4):
@@ -134,15 +166,15 @@ class MBConvTV(nn.Module):
                          if stride != 1 or cin != dim else None)
 
     def forward(self, x):
-        trace.count("mbconv_rows", math.prod(x.shape[:-1]))
-        h = F.gelu(self.bn_a(conv_nhwc(self.conv_a, self.pre_norm(x))))
+        _count_rows(x)
+        h = F.gelu(self.bn_a(_pointwise(self.conv_a, self.pre_norm(x))))
         h = F.gelu(self.bn_b(conv_nhwc(self.conv_b, h)))
-        h = conv_nhwc(self.conv_c, self.se(h))
-        if self.shortcut is not None:
-            if self.stride == 2:
-                x = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1,
-                                 count_include_pad=True).permute(0, 2, 3, 1)
-            x = conv_nhwc(self.shortcut, x)
+        h = _pointwise(self.conv_c, self.se(h))
+        if self.stride == 2:
+            x = _pooled_shortcut(self.shortcut, x, 3, 2, 1,
+                                 count_include_pad=True)
+        elif self.shortcut is not None:
+            x = _pointwise(self.shortcut, x)
         return x + h
 
 
@@ -227,7 +259,11 @@ class _MaxViTBase(nn.Module):
 
     def forward(self, x, taps: bool = False):
         tap = {}
-        y = self.stem(x.permute(0, 2, 3, 1))
+        # dense [B, H, W, C] from here on: the 1x1 convolutions are GEMMs
+        # over the pixels, and the others convolve the channels-last NCHW
+        # view, which cuDNN writes back channels-last; so every linear folds
+        # to one GEMM and the LayerNorms can take the fused kernel
+        y = self.stem(x.permute(0, 2, 3, 1).contiguous())
         for s, depth in enumerate(self.depths):
             for b in range(depth):
                 y = getattr(self, f"stage{s}_block{b}")(y)

@@ -38,7 +38,10 @@ the query rows of MaxViT's grid attention (``models/maxvit.py
 AttnLayer``: groups times tokens a group, 8,918 a row at 224 px, a part
 of ``window_attn_rows``), and ``mbconv_rows`` the input pixels of each of
 its MBConv calls (batch times input pixels, the resolution of the
-expansion's convolution, BN and GELU: 21,413 a row at 224 px).
+expansion's convolution, BN and GELU: 21,413 a row at 224 px), and
+``mbconv_dense_rows`` those of the calls whose input is dense ``[B, H,
+W, C]`` memory (every call, since the forward makes the stem's input
+contiguous).
 ``battery_forwards`` counts the forwards of the battery's reveal chunks
 (``metrics/curves.py _battery``: a chunk's three passes share a forward
 up to 180 rows, so a 224 px battery runs 5 image by image and 15 at four
