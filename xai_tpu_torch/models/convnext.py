@@ -8,20 +8,31 @@ layer scale ``gamma``, the skip.  The stem (4x4 stride 4) and the
 downsampling convs (2x2 stride 2) pad as XLA's ``"SAME"`` does.
 Submodule names follow the JAX parameter tree (``stem_conv``,
 ``stage{s}_block{b}.dwconv``, ``down{s}_norm``, ``head``, ...).
+
+Counter (``utils/trace.py``): ``cnblock_rows``, each ``CNBlock`` call's
+batch x H x W, the pixels of its depthwise conv and the token rows of its
+LayerNorm and MLP; 17,199 a model row at convnext_base's 224 px (3 x 56²
++ 3 x 28² + 27 x 14² + 3 x 7²).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import trace
 from .common import (Conv2dSame, LayerNorm, ModelBundle, ModelMeta,
                      conv_nhwc, init_flax_default)
 
 
 class CNBlock(nn.Module):
+    """7x7 depthwise conv, LayerNorm, Linear C -> 4C, GELU, Linear 4C ->
+    C, the layer scale, the skip; counts its input's batch x pixels into
+    ``cnblock_rows``."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
@@ -31,6 +42,7 @@ class CNBlock(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
 
     def forward(self, x):
+        trace.count("cnblock_rows", math.prod(x.shape[:-1]))
         h = self.norm(conv_nhwc(self.dwconv, x))
         h = self.pw2(F.gelu(self.pw1(h)))
         return x + self.gamma * h
