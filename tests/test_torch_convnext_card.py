@@ -1,14 +1,15 @@
 """ConvNeXt's modules in the port's layout on the card against the CPU.
 
-The blocks compute on ``[B, H, W, C]`` views of NCHW memory
-(``models/convnext.py``: every convolution through ``common.conv_nhwc``),
-so cuDNN's depthwise and strided convolutions, the LayerNorms' separate
-ops and the MLP's linears all meet strided tensors.  On the CPU: that the
-modules get such views, as the card tests build them.  The tests marked
-``card`` hold each module's output and input gradient on the card
-against the CPU's, at the small model's widths and at convnext_base's,
-and skip without a card; on a machine with one, run them without this
-directory's JAX conftest:
+The model's activations are dense ``[B, H, W, C]`` memory from the stem
+on (``models/convnext.py``): cuDNN's depthwise and strided convolutions
+read and write channels-last, each linear is one GEMM over the pixels,
+and each LayerNorm gets a contiguous input.  On the CPU: that the
+modules get such memory.  The tests marked ``card`` hold each module's
+output and input gradient on the card against the CPU's, on dense
+memory, which the model gives, and on ``[B, H, W, C]`` views of NCHW
+memory, at the small model's widths and at convnext_base's, and skip
+without a card; on a machine with one, run them without this directory's
+JAX conftest:
 
     python -m pytest tests/test_torch_convnext_card.py --noconftest -m card -q
 """
@@ -64,11 +65,17 @@ def block(dim):
     return module
 
 
-def _nhwc_view(shape, seed):
-    """A ``[B, H, W, C]`` view of NCHW memory, as the model's blocks get
-    their input."""
+# the layouts of a ``[B, H, W, C]`` input: dense memory, as the model's
+# modules get it, and a view of NCHW memory
+LAYOUTS = ("dense", "nchw_view")
+
+
+def _nhwc(shape, seed, layout):
+    """A seeded random ``[B, H, W, C]`` batch in ``layout``."""
     b, h, w, c = shape
     gen = torch.Generator().manual_seed(seed)
+    if layout == "dense":
+        return torch.randn(shape, generator=gen)
     return torch.randn((b, c, h, w), generator=gen).permute(0, 2, 3, 1)
 
 
@@ -77,30 +84,32 @@ def _rel(a, b):
             b.double().abs().max()).item()
 
 
-def test_blocks_get_views_of_nchw_memory():
-    """Every block and LayerNorm of the small model gets a strided
-    ``[B, H, W, C]`` view whose NCHW permute is dense (the layout the card
-    tests build), but the head norm, which gets the pooled rows."""
+def test_blocks_get_dense_memory():
+    """Every block and LayerNorm of the small model, the head norm's
+    pooled rows included, and every ``pw1`` gets a contiguous input, with
+    and without a recorded graph."""
     module = small_convnext()
     seen = []
     for name, mod in module.named_modules():
-        if isinstance(mod, (convnext.CNBlock, LayerNorm)):
+        if isinstance(mod, (convnext.CNBlock, LayerNorm)) or \
+                name.endswith("pw1"):
             mod.register_forward_pre_hook(
                 lambda mod, inp, name=name: seen.append(
-                    (name, inp[0].is_contiguous(),
-                     inp[0].permute(0, 3, 1, 2).is_contiguous()
-                     if inp[0].dim() == 4 else None)))
-    with torch.no_grad():
-        module(torch.randn(2, 3, 32, 32))
-    blocks = [s for s in seen if s[0].startswith("stage")
-              and "." not in s[0]]
-    assert [s[0] for s in blocks] == ["stage0_block0", "stage0_block1",
-                                     "stage1_block0"]
-    assert all(not dense and nchw for _, dense, nchw in blocks)
-    norms = {name: dense for name, dense, _ in seen
-             if name.endswith("norm")}
-    assert norms.pop("head_norm") is True
-    assert not any(norms.values()) and len(norms) == 3 + 2
+                    (name, inp[0].dim(), inp[0].is_contiguous())))
+    for grad in (False, True):
+        seen.clear()
+        with torch.set_grad_enabled(grad):
+            module(torch.randn(2, 3, 32, 32))
+        blocks = [s for s in seen if s[0].startswith("stage")
+                  and "." not in s[0]]
+        assert [s[0] for s in blocks] == ["stage0_block0",
+                                         "stage0_block1", "stage1_block0"]
+        norms = {name: dim for name, dim, _ in seen
+                 if name.endswith("norm")}
+        assert norms.pop("head_norm") == 2 and len(norms) == 3 + 2
+        assert set(norms.values()) == {4}
+        assert len(seen) == 3 + 3 + 3 + 3
+        assert all(dense for _, _, dense in seen)
 
 
 # --- on the card ----------------------------------------------------------
@@ -132,14 +141,16 @@ def _on_card(module, fn, x, card, seed=0):
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dim,side", BLOCKS)
-def test_block_on_card_matches_cpu(card, dim, side):
-    """A ``CNBlock`` on a view of NCHW memory: the 7x7 depthwise conv, the
-    LayerNorm's separate ops, the MLP on strided rows, the layer scale and
-    the skip; output within 1e-5 and input gradient within 1e-4 of the
-    CPU's, relative to their largest values (float32 rounding)."""
+def test_block_on_card_matches_cpu(card, dim, side, layout):
+    """A ``CNBlock`` on either layout: the 7x7 depthwise conv (cuDNN's
+    channels-last kernels on dense memory, forward and input gradient),
+    the LayerNorm's separate ops (a graph is recorded), the MLP, the layer
+    scale and the skip; output within 1e-5 and input gradient within 1e-4
+    of the CPU's, relative to their largest values (float32 rounding)."""
     want, got = _on_card(block(dim), lambda m, v: m(v),
-                         _nhwc_view((2, side, side, dim), dim), card)
+                         _nhwc((2, side, side, dim), dim, layout), card)
     assert _rel(got[0], want[0]) < 1e-5
     assert _rel(got[1], want[1]) < 1e-4
 
@@ -156,14 +167,17 @@ STAGES = {
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("part", sorted(STAGES))
-def test_parts_on_card_match_cpu(card, part):
+def test_parts_on_card_match_cpu(card, part, layout):
     """The stem (the 4x4 stride-4 ``Conv2dSame`` and its norm), a
     downsampling (norm and the 2x2 stride-2 conv), the head (mean pool,
-    norm, linear) and the whole small model, each on the layout the model
-    gives it; output within 1e-5 and input gradient within 1e-4 of the
-    CPU's (float32 rounding)."""
+    norm, linear) and the whole small model, each on either layout (the
+    model's input: NCHW memory, or a channels-last view); output within
+    1e-5 and input gradient within 1e-4 of the CPU's (float32
+    rounding)."""
     fn, shape = STAGES[part]
-    want, got = _on_card(small_convnext(), fn, _nhwc_view(shape, 1), card)
+    want, got = _on_card(small_convnext(), fn, _nhwc(shape, 1, layout),
+                         card)
     assert _rel(got[0], want[0]) < 1e-5
     assert _rel(got[1], want[1]) < 1e-4

@@ -143,20 +143,21 @@ def test_reference_matches_the_torchvision_oracle():
 
 def test_counter_follows_the_blocks(small):
     """A row of the small model: two blocks on 8 x 8 pixels and one on 4 x
-    4."""
+    4, every one on dense memory."""
     bundle, _, xs, _ = small
     before = trace.counters()
     with torch.no_grad():
         bundle.apply(_nchw(xs))
     grew = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
     assert grew["cnblock_rows"] == 3 * (2 * 64 + 16)
+    assert grew["cnblock_dense_rows"] == grew["cnblock_rows"]
     assert grew["model_rows"] == 3
 
 
 def test_convnext_base_counts_per_row():
     """At convnext_base's 224 px, from one 1-row forward on the meta
     device: 17,199 block pixels (3 x 56² + 3 x 28² + 27 x 14² + 3 x
-    7²)."""
+    7²), every one on dense memory."""
     with torch.device("meta"):
         bundle = TC.build_bundle("CONVNXT", device="meta")
         before = trace.counters()
@@ -165,6 +166,7 @@ def test_convnext_base_counts_per_row():
     grew = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
     assert grew["cnblock_rows"] == 17199 == \
         3 * 56 ** 2 + 3 * 28 ** 2 + 27 * 14 ** 2 + 3 * 7 ** 2
+    assert grew["cnblock_dense_rows"] == 17199
 
 
 def test_zoo_route_builds_convnext_base_at_published_shapes():

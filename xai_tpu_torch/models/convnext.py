@@ -1,18 +1,26 @@
 """ConvNeXt (tiny/small/base/large) with taps, as ``nn.Module``s.
 
 Counterpart of ``xai_tpu/models/convnext.py``.  The blocks compute in
-``[B, H, W, C]``, as flax does, and convolve through the NCHW view of that
-channels-last tensor (``common.conv_nhwc``): a 7x7 depthwise conv,
-LayerNorm (eps 1e-6, flax's), a 4x pointwise MLP with exact GELU, the
-layer scale ``gamma``, the skip.  The stem (4x4 stride 4) and the
-downsampling convs (2x2 stride 2) pad as XLA's ``"SAME"`` does.
-Submodule names follow the JAX parameter tree (``stem_conv``,
-``stage{s}_block{b}.dwconv``, ``down{s}_norm``, ``head``, ...).
+``[B, H, W, C]``, as flax does: a 7x7 depthwise conv, LayerNorm (eps
+1e-6, flax's), a 4x pointwise MLP with exact GELU, the layer scale
+``gamma``, the skip.  The stem (4x4 stride 4) and the downsampling convs
+(2x2 stride 2) pad as XLA's ``"SAME"`` does.  Submodule names follow the
+JAX parameter tree (``stem_conv``, ``stage{s}_block{b}.dwconv``,
+``down{s}_norm``, ``head``, ...).
 
-Counter (``utils/trace.py``): ``cnblock_rows``, each ``CNBlock`` call's
+Every activation from the stem on is dense ``[B, H, W, C]`` memory: the
+forward makes the stem's input contiguous, and each convolution
+(:func:`_conv_dense`) convolves the NCHW view of that channels-last
+tensor, which cuDNN writes back channels-last.  So each linear folds the
+pixels into one ``addmm`` and each LayerNorm gets a contiguous input,
+which under no-grad takes the fused kernel (``common._fused_layernorm``).
+
+Counters (``utils/trace.py``): ``cnblock_rows``, each ``CNBlock`` call's
 batch x H x W, the pixels of its depthwise conv and the token rows of its
 LayerNorm and MLP; 17,199 a model row at convnext_base's 224 px (3 x 56²
-+ 3 x 28² + 27 x 14² + 3 x 7²).
++ 3 x 28² + 27 x 14² + 3 x 7²); ``cnblock_dense_rows`` the same where the
+block's input is dense ``[B, H, W, C]`` memory, which it is on every
+call.
 """
 from __future__ import annotations
 
@@ -28,10 +36,19 @@ from .common import (Conv2dSame, LayerNorm, ModelBundle, ModelMeta,
                      conv_nhwc, init_flax_default)
 
 
+def _conv_dense(conv: nn.Module, x):
+    """``conv`` of a dense ``[B, H, W, C]`` batch through
+    ``common.conv_nhwc``, returned dense.  cuDNN and the CPU convolve the
+    channels-last view and write channels-last, so ``contiguous`` copies
+    nothing there; the meta device writes NCHW."""
+    return conv_nhwc(conv, x).contiguous()
+
+
 class CNBlock(nn.Module):
     """7x7 depthwise conv, LayerNorm, Linear C -> 4C, GELU, Linear 4C ->
     C, the layer scale, the skip; counts its input's batch x pixels into
-    ``cnblock_rows``."""
+    ``cnblock_rows``, and into ``cnblock_dense_rows`` where the input is
+    dense ``[B, H, W, C]`` memory."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -42,15 +59,19 @@ class CNBlock(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
 
     def forward(self, x):
-        trace.count("cnblock_rows", math.prod(x.shape[:-1]))
-        h = self.norm(conv_nhwc(self.dwconv, x))
+        rows = math.prod(x.shape[:-1])
+        trace.count("cnblock_rows", rows)
+        if x.is_contiguous():
+            trace.count("cnblock_dense_rows", rows)
+        h = self.norm(_conv_dense(self.dwconv, x))
         h = self.pw2(F.gelu(self.pw1(h)))
         return x + self.gamma * h
 
 
 class ConvNeXt(nn.Module):
     """``forward(x)`` takes NCHW and returns logits; ``taps=True`` also
-    returns {"stage0".."stage3", "layer4": each stage's output}, NCHW."""
+    returns {"stage0".."stage3", "layer4": each stage's output}, NCHW
+    views of channels-last memory."""
 
     def __init__(self, depths: Sequence[int], dims: Sequence[int],
                  num_classes: int = 1000):
@@ -71,12 +92,12 @@ class ConvNeXt(nn.Module):
 
     def forward(self, x, taps: bool = False):
         tap = {}
-        y = self.stem_norm(conv_nhwc(self.stem_conv,
-                                     x.permute(0, 2, 3, 1)))
+        y = self.stem_norm(_conv_dense(
+            self.stem_conv, x.permute(0, 2, 3, 1).contiguous()))
         for s, depth in enumerate(self.depths):
             if s > 0:
-                y = conv_nhwc(getattr(self, f"down{s}_conv"),
-                              getattr(self, f"down{s}_norm")(y))
+                y = _conv_dense(getattr(self, f"down{s}_conv"),
+                                getattr(self, f"down{s}_norm")(y))
             for b in range(depth):
                 y = getattr(self, f"stage{s}_block{b}")(y)
             tap[f"stage{s}"] = y.permute(0, 3, 1, 2)

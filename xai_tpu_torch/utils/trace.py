@@ -45,7 +45,10 @@ contiguous).
 ``cnblock_rows`` counts the pixels of each ConvNeXt block call
 (``models/convnext.py CNBlock``: batch x H x W, the pixels of its 7x7
 depthwise conv and the token rows of its LayerNorm and MLP; 17,199 a row
-at convnext_base's 224 px).
+at convnext_base's 224 px), and ``cnblock_dense_rows`` those of the calls
+whose input is dense ``[B, H, W, C]`` memory (every call, since the
+forward makes the stem's input contiguous and the convolutions write
+channels-last).
 ``battery_forwards`` counts the forwards of the battery's reveal chunks
 (``metrics/curves.py _battery``: a chunk's three passes share a forward
 up to 180 rows, so a 224 px battery runs 5 image by image and 15 at four
