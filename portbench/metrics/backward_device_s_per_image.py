@@ -1,0 +1,10 @@
+"""Device seconds of the program's ``backward`` part spans an image scored
+(``xai_tpu_torch/utils/trace.py part``; the IG sweep's backward, one
+span a ``ModelBundle.score_and_grad`` call): their summed ``device_s``
+over the window, over the images scored.  None where no such span has
+``device_s``: a program without part spans, or a model without the kind."""
+from portbench.metrics.parts_window_pct import per_image
+
+
+def read(ctx):
+    return per_image(ctx, "backward")

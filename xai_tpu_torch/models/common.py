@@ -167,11 +167,14 @@ class ModelBundle:
         image, so the gradient of the sum is the per-sample gradient.
         Scores are taken from float32 logits and the gradient comes back
         float32 whatever the module's dtype, as xai_tpu's ``_flat_grads``
-        does.  Returns (grads, scores)."""
+        does.  The backward is one ``backward`` part (``utils/trace.py``):
+        it runs on autograd's thread, outside the forward's parts.
+        Returns (grads, scores)."""
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             scores = target_scores(self.apply(x).float(), target)
-            (g,) = torch.autograd.grad(scores.sum(), x)
+            with trace.part("backward", x):
+                (g,) = torch.autograd.grad(scores.sum(), x)
         return g.float(), scores.detach()
 
 
@@ -234,13 +237,30 @@ class Conv2dSame(nn.Conv2d):
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``conv`` on an ``[B, H, W, C]`` batch, returned ``[B, H', W', C']``:
     the NCHW view of a channels-last tensor, which cuDNN convolves in
-    place of a layout copy."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    place of a layout copy.  A ``conv`` part (``utils/trace.py``)."""
+    with trace.part("conv", x):
+        return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def linear(fc: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``fc(x)`` as a ``linear`` part (``utils/trace.py``)."""
+    with trace.part("linear", x):
+        return fc(x)
+
+
+def mlp(fc1: nn.Module, fc2: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``fc2(gelu(fc1(x)))``, exact GELU, as a ``linear``, a
+    ``pointwise`` and a ``linear`` part."""
+    h = linear(fc1, x)
+    with trace.part("pointwise", h):
+        h = F.gelu(h)
+    return linear(fc2, h)
 
 
 class FoldedBN(nn.Module):
     """Inference BatchNorm as y = x * scale + bias, per channel: axis 1
-    (NCHW) or, with ``channels_last``, the last axis (NHWC)."""
+    (NCHW) or, with ``channels_last``, the last axis (NHWC); a ``norm``
+    part."""
 
     def __init__(self, features: int, channels_last: bool = False):
         super().__init__()
@@ -249,9 +269,10 @@ class FoldedBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        if self.channels_last:
-            return x * self.scale + self.bias
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+        with trace.part("norm", x):
+            if self.channels_last:
+                return x * self.scale + self.bias
+            return x * self.scale[:, None, None] + self.bias[:, None, None]
 
 
 def _fused_layernorm(x: torch.Tensor, scale: torch.Tensor,
@@ -272,7 +293,7 @@ class LayerNorm(nn.Module):
     which differs from the separate ops only by the order of its two
     sums; else the separate ops.  Counts its token rows in
     ``layernorm_rows``, and those of the fused calls in
-    ``layernorm_fused_rows``."""
+    ``layernorm_fused_rows``; a ``norm`` part either way."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -283,10 +304,11 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         rows = math.prod(x.shape[:-1])
         trace.count("layernorm_rows", rows)
-        if _fused_layernorm(x, self.scale, self.bias):
-            trace.count("layernorm_fused_rows", rows)
-            return layernorm(x, self.scale, self.bias, self.eps)
-        return layernorm_plain(x, self.scale, self.bias, self.eps)
+        with trace.part("norm", x):
+            if _fused_layernorm(x, self.scale, self.bias):
+                trace.count("layernorm_fused_rows", rows)
+                return layernorm(x, self.scale, self.bias, self.eps)
+            return layernorm_plain(x, self.scale, self.bias, self.eps)
 
 
 @torch.no_grad()

@@ -21,6 +21,13 @@ LayerNorm and MLP; 17,199 a model row at convnext_base's 224 px (3 x 56²
 + 3 x 28² + 27 x 14² + 3 x 7²); ``cnblock_dense_rows`` the same where the
 block's input is dense ``[B, H, W, C]`` memory, which it is on every
 call.
+
+Part spans (``utils/trace.py``): six a block (the depthwise ``conv``, its
+LayerNorm ``norm``, ``pw1`` ``linear``, GELU ``pointwise``, ``pw2``
+``linear``, the layer scale and skip ``pointwise``), three in the stem
+(the input's NHWC copy ``layout``, ``conv``, ``norm``), two in each
+downsampling (``norm``, ``conv``) and three in the head (the mean-pool
+``pointwise``, ``norm``, ``linear``).
 """
 from __future__ import annotations
 
@@ -29,19 +36,19 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..utils import trace
 from .common import (Conv2dSame, LayerNorm, ModelBundle, ModelMeta,
-                     conv_nhwc, init_flax_default)
+                     conv_nhwc, init_flax_default, linear, mlp)
 
 
 def _conv_dense(conv: nn.Module, x):
     """``conv`` of a dense ``[B, H, W, C]`` batch through
     ``common.conv_nhwc``, returned dense.  cuDNN and the CPU convolve the
     channels-last view and write channels-last, so ``contiguous`` copies
-    nothing there; the meta device writes NCHW."""
-    return conv_nhwc(conv, x).contiguous()
+    nothing there; the meta device writes NCHW.  One ``conv`` part."""
+    with trace.part("conv", x):
+        return conv_nhwc(conv, x).contiguous()
 
 
 class CNBlock(nn.Module):
@@ -63,9 +70,9 @@ class CNBlock(nn.Module):
         trace.count("cnblock_rows", rows)
         if x.is_contiguous():
             trace.count("cnblock_dense_rows", rows)
-        h = self.norm(_conv_dense(self.dwconv, x))
-        h = self.pw2(F.gelu(self.pw1(h)))
-        return x + self.gamma * h
+        h = mlp(self.pw1, self.pw2, self.norm(_conv_dense(self.dwconv, x)))
+        with trace.part("pointwise", h):
+            return x + self.gamma * h
 
 
 class ConvNeXt(nn.Module):
@@ -90,10 +97,12 @@ class ConvNeXt(nn.Module):
         self.head_norm = LayerNorm(dims[-1], eps=1e-6)
         self.head = nn.Linear(dims[-1], num_classes)
 
+    @trace.tiled
     def forward(self, x, taps: bool = False):
         tap = {}
-        y = self.stem_norm(_conv_dense(
-            self.stem_conv, x.permute(0, 2, 3, 1).contiguous()))
+        with trace.part("layout", x):
+            y = x.permute(0, 2, 3, 1).contiguous()
+        y = self.stem_norm(_conv_dense(self.stem_conv, y))
         for s, depth in enumerate(self.depths):
             if s > 0:
                 y = _conv_dense(getattr(self, f"down{s}_conv"),
@@ -102,7 +111,9 @@ class ConvNeXt(nn.Module):
                 y = getattr(self, f"stage{s}_block{b}")(y)
             tap[f"stage{s}"] = y.permute(0, 3, 1, 2)
         tap["layer4"] = tap[f"stage{len(self.depths) - 1}"]
-        logits = self.head(self.head_norm(y.mean(dim=(1, 2))))
+        with trace.part("pointwise", y):
+            y = y.mean(dim=(1, 2))
+        logits = linear(self.head, self.head_norm(y))
         return (logits, tap) if taps else logits
 
 

@@ -31,6 +31,15 @@ where the input is dense ``[B, H, W, C]`` memory, which it is on every
 call: the forward makes the stem's input contiguous, the 1x1
 convolutions run as GEMMs over the pixels, the 3x3 ones read and write
 channels-last, and the shortcut's pool comes back dense.
+
+Part spans (``utils/trace.py``): the 3x3 convolutions and the shortcut's
+1x1 after its pool ``conv`` parts; the 1x1 convolutions as GEMMs, the
+attention's qkv and projection, the MLPs' linears and the head's
+``linear`` parts; between qkv and the projection an ``attn`` part; every
+FoldedBN and LayerNorm a ``norm`` part; GELU, squeeze-excite, the pool,
+the residual adds, the mean-pool and tanh ``pointwise`` parts; the stem's
+input copy, the window and grid partitions and reverses and the
+shortcut's NCHW copies ``layout`` parts.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ import torch.nn.functional as F
 
 from ..utils import trace
 from .common import (FoldedBN, LayerNorm, ModelBundle, ModelMeta,
-                     conv_nhwc, init_flax_default)
+                     conv_nhwc, init_flax_default, linear, mlp)
 from .swin import WindowAttention, window_partition, window_reverse
 
 # torchvision's maxvit_t, the ``MAXVIT`` bundle's form (``MaxViTTV``'s
@@ -77,8 +86,9 @@ class SqueezeExcite(nn.Module):
         self.fc2 = nn.Linear(sqz, mid)
 
     def forward(self, x):
-        s = F.silu(self.fc1(x.mean(dim=(1, 2))))
-        return x * torch.sigmoid(self.fc2(s))[:, None, None, :]
+        with trace.part("pointwise", x):
+            s = F.silu(self.fc1(x.mean(dim=(1, 2))))
+            return x * torch.sigmoid(self.fc2(s))[:, None, None, :]
 
 
 def _pointwise(conv: nn.Conv2d, x):
@@ -86,8 +96,9 @@ def _pointwise(conv: nn.Conv2d, x):
     is over the pixels: one ``addmm`` with the bias.  cuDNN's float32
     channels-last path transposes to NCHW and back around its kernel
     (4.70 ms against this GEMM's 2.28 ms at [180, 64, 112, 112] to 256
-    channels, on an H100)."""
-    return F.linear(x, conv.weight.flatten(1), conv.bias)
+    channels, on an H100).  A ``linear`` part."""
+    with trace.part("linear", x):
+        return F.linear(x, conv.weight.flatten(1), conv.bias)
 
 
 def _pooled_shortcut(conv: nn.Module, x, *pool, **pool_kw):
@@ -96,9 +107,28 @@ def _pooled_shortcut(conv: nn.Module, x, *pool, **pool_kw):
     ``x``: on CUDA, PyTorch's channels-last ``avg_pool2d`` backward gives
     a wrong input gradient for torchvision's padded 3x3 pool (0.94 of the
     largest off, on an H100 with torch 2.11; the paper form's 2x2 pool
-    was right), and the NCHW forward kernel is the faster one."""
-    x = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), *pool, **pool_kw)
-    return conv(x).permute(0, 2, 3, 1).contiguous()
+    was right), and the NCHW forward kernel is the faster one.  The two
+    copies are ``layout`` parts, the pool a ``pointwise`` and the
+    convolution a ``conv`` part."""
+    with trace.part("layout", x):
+        x = x.permute(0, 3, 1, 2).contiguous()
+    with trace.part("pointwise", x):
+        x = F.avg_pool2d(x, *pool, **pool_kw)
+    with trace.part("conv", x):
+        x = conv(x)
+    with trace.part("layout", x):
+        return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _gelu(x):
+    with trace.part("pointwise", x):
+        return F.gelu(x)
+
+
+def _add(x, h):
+    """The residual add, a ``pointwise`` part."""
+    with trace.part("pointwise", h):
+        return x + h
 
 
 def _count_rows(x):
@@ -132,14 +162,14 @@ class MBConv(nn.Module):
 
     def forward(self, x):
         _count_rows(x)
-        h = F.gelu(_pointwise(self.expand, self.pre_norm(x)))
-        h = F.gelu(conv_nhwc(self.dw, h))
+        h = _gelu(_pointwise(self.expand, self.pre_norm(x)))
+        h = _gelu(conv_nhwc(self.dw, h))
         h = _pointwise(self.proj, self.se(h))
         if self.stride > 1:
             x = _pooled_shortcut(self.shortcut, x, self.stride, self.stride)
         elif self.shortcut is not None:
             x = _pointwise(self.shortcut, x)
-        return x + h
+        return _add(x, h)
 
 
 class MBConvTV(nn.Module):
@@ -167,15 +197,15 @@ class MBConvTV(nn.Module):
 
     def forward(self, x):
         _count_rows(x)
-        h = F.gelu(self.bn_a(_pointwise(self.conv_a, self.pre_norm(x))))
-        h = F.gelu(self.bn_b(conv_nhwc(self.conv_b, h)))
+        h = _gelu(self.bn_a(_pointwise(self.conv_a, self.pre_norm(x))))
+        h = _gelu(self.bn_b(conv_nhwc(self.conv_b, h)))
         h = _pointwise(self.conv_c, self.se(h))
         if self.stride == 2:
             x = _pooled_shortcut(self.shortcut, x, 3, 2, 1,
                                  count_include_pad=True)
         elif self.shortcut is not None:
             x = _pointwise(self.shortcut, x)
-        return x + h
+        return _add(x, h)
 
 
 class AttnLayer(nn.Module):
@@ -201,12 +231,16 @@ class AttnLayer(nn.Module):
         y = self.norm(x)
         if self.grid:
             trace.count("grid_attn_rows", b * h * w)
-            a = grid_reverse(self.attn(grid_partition(y, ws)), ws, b, h, w)
+            partition, reverse = grid_partition, grid_reverse
         else:
-            a = window_reverse(self.attn(window_partition(y, ws)), ws, b, h,
-                               w)
-        x = x + a
-        return x + self.mlp_fc2(F.gelu(self.mlp_fc1(self.mlp_norm(x))))
+            partition, reverse = window_partition, window_reverse
+        with trace.part("layout", y):
+            y = partition(y, ws)
+        a = self.attn(y)
+        with trace.part("layout", a):
+            a = reverse(a, ws, b, h, w)
+        x = _add(x, a)
+        return _add(x, mlp(self.mlp_fc1, self.mlp_fc2, self.mlp_norm(x)))
 
 
 class MaxViTBlock(nn.Module):
@@ -257,20 +291,27 @@ class _MaxViTBase(nn.Module):
     def stem(self, x):
         raise NotImplementedError
 
+    @trace.tiled
     def forward(self, x, taps: bool = False):
         tap = {}
         # dense [B, H, W, C] from here on: the 1x1 convolutions are GEMMs
         # over the pixels, and the others convolve the channels-last NCHW
         # view, which cuDNN writes back channels-last; so every linear folds
         # to one GEMM and the LayerNorms can take the fused kernel
-        y = self.stem(x.permute(0, 2, 3, 1).contiguous())
+        with trace.part("layout", x):
+            y = x.permute(0, 2, 3, 1).contiguous()
+        y = self.stem(y)
         for s, depth in enumerate(self.depths):
             for b in range(depth):
                 y = getattr(self, f"stage{s}_block{b}")(y)
             tap[f"stage{s}"] = y.permute(0, 3, 1, 2)
         tap["layer4"] = tap[f"stage{len(self.depths) - 1}"]
-        y = torch.tanh(self.head_pre(self.head_norm(y.mean(dim=(1, 2)))))
-        logits = self.head(y)
+        with trace.part("pointwise", y):
+            y = y.mean(dim=(1, 2))
+        y = linear(self.head_pre, self.head_norm(y))
+        with trace.part("pointwise", y):
+            y = torch.tanh(y)
+        logits = linear(self.head, y)
         return (logits, tap) if taps else logits
 
 
@@ -290,7 +331,7 @@ class MaxViTTV(_MaxViTBase):
         self.stem_conv2 = nn.Conv2d(stem_dim, stem_dim, 3, padding=1)
 
     def stem(self, x):
-        y = F.gelu(self.stem_bn(conv_nhwc(self.stem_conv1, x)))
+        y = _gelu(self.stem_bn(conv_nhwc(self.stem_conv1, x)))
         return conv_nhwc(self.stem_conv2, y)
 
 
@@ -308,7 +349,7 @@ class MaxViT(_MaxViTBase):
         self.stem2 = nn.Conv2d(stem_dim, stem_dim, 3, padding=1)
 
     def stem(self, x):
-        return conv_nhwc(self.stem2, F.gelu(conv_nhwc(self.stem1, x)))
+        return conv_nhwc(self.stem2, _gelu(conv_nhwc(self.stem1, x)))
 
 
 def make_bundle(state: Optional[dict] = None, seed: int = 0,

@@ -11,6 +11,10 @@ records no autograd graph, on a contiguous CUDA float32 input with
 ``F.relu`` as its activation, runs each convolution's epilogue (FoldedBN,
 the residual with its downsample FoldedBN, ReLU) as one pass of
 ``kernels/bn_act.py``, bit-exact with the separate ops it replaces.
+
+Part spans (``utils/trace.py``): each convolution a ``conv`` part, each
+epilogue a ``norm`` part whichever way it runs, the max-pool, the probes
+and the final mean ``pointwise`` parts, the classifier a ``linear`` part.
 """
 from __future__ import annotations
 
@@ -22,12 +26,17 @@ import torch.nn.functional as F
 
 from ..kernels.bn_act import bn_act
 from ..utils import trace
-from .common import FoldedBN, ModelBundle, ModelMeta, lecun_init_
+from .common import FoldedBN, ModelBundle, ModelMeta, lecun_init_, linear
 
 
 def _conv(cin, cout, k, stride=1, padding=0, groups=1):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
                      groups=groups, bias=False)
+
+
+def _conv_part(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    with trace.part("conv", x):
+        return conv(x)
 
 
 def _fused(x: torch.Tensor, relu: Callable) -> bool:
@@ -44,16 +53,19 @@ def _epilogue(fused: bool, relu: Callable, y: torch.Tensor, bn: FoldedBN,
               residual: Optional[torch.Tensor] = None,
               residual_bn: Optional[FoldedBN] = None) -> torch.Tensor:
     """``relu(bn(y) [+ residual_bn(residual), or + residual])``: one
-    ``bn_act`` pass where ``fused``, else the separate ops."""
-    if fused:
-        rest = () if residual is None else (residual,)
-        if residual_bn is not None:
-            rest += (residual_bn.scale, residual_bn.bias)
-        return bn_act(y, bn.scale, bn.bias, *rest)
-    y = bn(y)
-    if residual is not None:
-        y = y + (residual if residual_bn is None else residual_bn(residual))
-    return relu(y)
+    ``bn_act`` pass where ``fused``, else the separate ops; one ``norm``
+    part either way."""
+    with trace.part("norm", y):
+        if fused:
+            rest = () if residual is None else (residual,)
+            if residual_bn is not None:
+                rest += (residual_bn.scale, residual_bn.bias)
+            return bn_act(y, bn.scale, bn.bias, *rest)
+        y = bn(y)
+        if residual is not None:
+            y = y + (residual if residual_bn is None
+                     else residual_bn(residual))
+        return relu(y)
 
 
 class Bottleneck(nn.Module):
@@ -79,12 +91,14 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         fused = _fused(x, self.relu)
-        y = _epilogue(fused, self.relu, self.conv1(x), self.bn1)
-        y = _epilogue(fused, self.relu, self.conv2(y), self.bn2)
+        y = _epilogue(fused, self.relu, _conv_part(self.conv1, x), self.bn1)
+        y = _epilogue(fused, self.relu, _conv_part(self.conv2, y), self.bn2)
+        y = _conv_part(self.conv3, y)
         if self.downsample_conv is None:
-            return _epilogue(fused, self.relu, self.conv3(y), self.bn3, x)
-        return _epilogue(fused, self.relu, self.conv3(y), self.bn3,
-                         self.downsample_conv(x), self.downsample_bn)
+            return _epilogue(fused, self.relu, y, self.bn3, x)
+        return _epilogue(fused, self.relu, y, self.bn3,
+                         _conv_part(self.downsample_conv, x),
+                         self.downsample_bn)
 
 
 class ResNet(nn.Module):
@@ -121,6 +135,7 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*stage_blocks))
         self.fc = nn.Linear(in_features, num_classes)
 
+    @trace.tiled
     def forward(self, x, taps: bool = False, probes: Optional[dict] = None):
         """``probes``: optional dict of zero tensors added to stage outputs;
         the gradient with respect to a probe is the gradient with respect
@@ -129,16 +144,19 @@ class ResNet(nn.Module):
         fused = _fused(x, self.relu)
         if fused:
             trace.count("bn_act_rows", x.shape[0])
-        y = self.maxpool(_epilogue(fused, self.relu, self.conv1(x),
-                                   self.bn1))
+        y = _epilogue(fused, self.relu, _conv_part(self.conv1, x), self.bn1)
+        with trace.part("pointwise", y):
+            y = self.maxpool(y)
         for name in ("layer1", "layer2", "layer3", "layer4"):
             y = getattr(self, name)(y)
             if probes is not None and name in probes:
-                y = y + probes[name]
+                with trace.part("pointwise", y):
+                    y = y + probes[name]
             tap[name] = y
-        y = y.mean(dim=(2, 3))
+        with trace.part("pointwise", y):
+            y = y.mean(dim=(2, 3))
         tap["pool"] = y
-        logits = self.fc(y)
+        logits = linear(self.fc, y)
         if taps:
             return logits, tap
         return logits

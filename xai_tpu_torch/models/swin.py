@@ -23,6 +23,15 @@ too: a Swin block's attention, shifted or not, and MaxViT's block and grid
 attention, which share the module (``models/maxvit.py``).  Swin-B at
 224 px counts 11,466 rows an image, 5,684 of them masked: the last stage's
 shift is dropped.
+
+Part spans (``utils/trace.py``): the patch embedding a ``conv`` part; the
+rolls with the window partition, the window reverse with the roll back,
+patch merging's gather and the patch norm's input copy ``layout`` parts;
+qkv, the projection, the MLP's linears, the merging's reduction and the
+head ``linear`` parts; :class:`WindowAttention` between qkv and the
+projection (the bias gather and add, the mask, softmax) one ``attn``
+part; every LayerNorm a ``norm`` part; GELU, the residual adds and the
+mean-pool ``pointwise`` parts.
 """
 from __future__ import annotations
 
@@ -31,11 +40,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..utils import trace
 from .common import (Conv2dSame, LayerNorm, ModelBundle, ModelMeta,
-                     conv_nhwc, init_flax_default)
+                     conv_nhwc, init_flax_default, linear, mlp)
 
 
 def rel_position_index(ws: int) -> np.ndarray:
@@ -108,19 +116,21 @@ class WindowAttention(nn.Module):
         trace.count("window_attn_rows", nw * n)
         if mask is not None:
             trace.count("masked_window_rows", nw * n)
-        qkv = self.qkv(x).view(nw, n, 3, h, c // h)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        attn = (q @ k.transpose(-2, -1)) * self.scale
-        bias = self.rel_bias_table[self.rel_index].view(n, n, h)
-        attn = attn + bias.permute(2, 0, 1)[None]
-        if mask is not None:
-            nm = mask.shape[0]
-            attn = attn.view(nw // nm, nm, h, n, n) + \
-                mask.to(attn.dtype)[None, :, None]
-            attn = attn.view(nw, h, n, n)
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(nw, n, c)
-        return self.proj(out)
+        qkv = linear(self.qkv, x)
+        with trace.part("attn", qkv):
+            qkv = qkv.view(nw, n, 3, h, c // h)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            attn = (q @ k.transpose(-2, -1)) * self.scale
+            bias = self.rel_bias_table[self.rel_index].view(n, n, h)
+            attn = attn + bias.permute(2, 0, 1)[None]
+            if mask is not None:
+                nm = mask.shape[0]
+                attn = attn.view(nw // nm, nm, h, n, n) + \
+                    mask.to(attn.dtype)[None, :, None]
+                attn = attn.view(nw, h, n, n)
+            attn = torch.softmax(attn, dim=-1).to(x.dtype)
+            out = (attn @ v).transpose(1, 2).reshape(nw, n, c)
+        return linear(self.proj, out)
 
 
 class SwinBlock(nn.Module):
@@ -142,14 +152,20 @@ class SwinBlock(nn.Module):
         b, h, w, _ = x.shape
         s = self.shift
         y = self.norm1(x)
-        if s:
-            y = torch.roll(y, (-s, -s), dims=(1, 2))
-        a = self.attn(window_partition(y, self.ws), self.mask)
-        a = window_reverse(a, self.ws, b, h, w)
-        if s:
-            a = torch.roll(a, (s, s), dims=(1, 2))
-        x = x + a
-        return x + self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
+        with trace.part("layout", y):
+            if s:
+                y = torch.roll(y, (-s, -s), dims=(1, 2))
+            y = window_partition(y, self.ws)
+        a = self.attn(y, self.mask)
+        with trace.part("layout", a):
+            a = window_reverse(a, self.ws, b, h, w)
+            if s:
+                a = torch.roll(a, (s, s), dims=(1, 2))
+        with trace.part("pointwise", a):
+            x = x + a
+        m = mlp(self.mlp_fc1, self.mlp_fc2, self.norm2(x))
+        with trace.part("pointwise", m):
+            return x + m
 
 
 class PatchMerging(nn.Module):
@@ -159,9 +175,10 @@ class PatchMerging(nn.Module):
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
-        y = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
-                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return self.reduction(self.norm(y))
+        with trace.part("layout", x):
+            y = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                           x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        return linear(self.reduction, self.norm(y))
 
 
 class SwinTransformer(nn.Module):
@@ -189,6 +206,7 @@ class SwinTransformer(nn.Module):
         self.norm = LayerNorm(dim, eps=1e-5)
         self.head = nn.Linear(dim, num_classes)
 
+    @trace.tiled
     def forward(self, x, taps: bool = False):
         tap = {}
         y = conv_nhwc(self.patch_embed, x.permute(0, 2, 3, 1))
@@ -196,7 +214,8 @@ class SwinTransformer(nn.Module):
             # the NHWC rows in memory order, so that the patch norm takes
             # the fused LayerNorm: one copy and one pass in place of its
             # separate ops over a strided view
-            y = y.contiguous()
+            with trace.part("layout", y):
+                y = y.contiguous()
         y = self.patch_norm(y)
         for s, depth in enumerate(self.depths):
             if s > 0:
@@ -205,7 +224,10 @@ class SwinTransformer(nn.Module):
                 y = getattr(self, f"stage{s}_block{b}")(y)
             tap[f"stage{s}"] = y.permute(0, 3, 1, 2)
         tap["layer4"] = tap[f"stage{len(self.depths) - 1}"]
-        logits = self.head(self.norm(y).mean(dim=(1, 2)))
+        y = self.norm(y)
+        with trace.part("pointwise", y):
+            y = y.mean(dim=(1, 2))
+        logits = linear(self.head, y)
         return (logits, tap) if taps else logits
 
 

@@ -21,6 +21,13 @@ The attention is written out (the explainers need the post-softmax map as
 a tap and the probe added to it), with xai_tpu's order of operations:
 logits ``(q @ k^T) * scale``, softmax, probe, ``@ v``, all in the compute
 dtype (bf16 on a cast copy, as xai_tpu keeps its bf16 path).
+
+Part spans (``utils/trace.py``): the patch embedding a ``conv`` part, its
+token order and CLS a ``layout`` part, the positional embedding, the
+probes, the residual adds and GELU ``pointwise`` parts, every LayerNorm a
+``norm`` part, qkv, the projection, the MLP's two linears and the head
+``linear`` parts, and the attention between qkv and the projection one
+``attn`` part.
 """
 from __future__ import annotations
 
@@ -29,10 +36,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.preprocess import VIT_MEAN, VIT_STD
-from .common import LayerNorm, ModelBundle, ModelMeta, lecun_init_
+from ..utils import trace
+from .common import (LayerNorm, ModelBundle, ModelMeta, lecun_init_, linear,
+                     mlp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,14 +86,17 @@ class Attention(nn.Module):
     def forward(self, x, probe=None):
         b, n, c = x.shape
         h = self.num_heads
-        qkv = self.qkv(x).view(b, n, 3, h, c // h)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        # scale after the product, as xai_tpu's einsum(q, k) * scale
-        logits = (q @ k.transpose(-2, -1)) * (c // h) ** -0.5
-        attn = torch.softmax(logits, dim=-1)
-        if probe is not None:
-            attn = attn + probe
-        out = self.proj((attn @ v).transpose(1, 2).reshape(b, n, c))
+        qkv = linear(self.qkv, x)
+        with trace.part("attn", qkv):
+            qkv = qkv.view(b, n, 3, h, c // h)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            # scale after the product, as xai_tpu's einsum(q, k) * scale
+            logits = (q @ k.transpose(-2, -1)) * (c // h) ** -0.5
+            attn = torch.softmax(logits, dim=-1)
+            if probe is not None:
+                attn = attn + probe
+            out = (attn @ v).transpose(1, 2).reshape(b, n, c)
+        out = linear(self.proj, out)
         return out, {"attn": attn, "attn_logits": logits, "v": v,
                      "attn_out": out}
 
@@ -102,9 +113,11 @@ class Block(nn.Module):
     def forward(self, x, probe=None):
         attn_in = self.norm1(x)
         a, tap = self.attn(attn_in, probe)
-        x_plus_attn = x + a
-        mlp_val = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x_plus_attn))))
-        out = x_plus_attn + mlp_val
+        with trace.part("pointwise", a):
+            x_plus_attn = x + a
+        mlp_val = mlp(self.mlp_fc1, self.mlp_fc2, self.norm2(x_plus_attn))
+        with trace.part("pointwise", mlp_val):
+            out = x_plus_attn + mlp_val
         tap.update({"block_in": x, "norm1_out": attn_in,
                     "input_plus_attn": x_plus_attn, "mlp_val": mlp_val,
                     "block_out": out})
@@ -132,10 +145,15 @@ class VisionTransformer(nn.Module):
         ``[B, N, D]``."""
         # NCHW conv, then [B, D, gh, gw] -> [B, gh*gw, D]: the row-major
         # token order of xai_tpu's NHWC reshape
-        y = self.patch_embed(x).flatten(2).transpose(1, 2)
-        y = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), y], dim=1)
-        return y + self.pos_embed
+        with trace.part("conv", x):
+            y = self.patch_embed(x)
+        with trace.part("layout", y):
+            y = torch.cat([self.cls_token.expand(x.shape[0], -1, -1),
+                           y.flatten(2).transpose(1, 2)], dim=1)
+        with trace.part("pointwise", y):
+            return y + self.pos_embed
 
+    @trace.tiled
     def forward(self, x, taps: bool = False, probes: Optional[dict] = None,
                 token_indices: Optional[torch.Tensor] = None):
         """x: ``[B, 3, H, W]``.  ``probes``: optional ``{"attn": per-block
@@ -149,15 +167,17 @@ class VisionTransformer(nn.Module):
         kept."""
         y = self.embed(x)
         if probes is not None and "embed" in probes:
-            y = y + probes["embed"]
+            with trace.part("pointwise", y):
+                y = y + probes["embed"]
         patch_embedding = y
         if token_indices is not None:
-            if token_indices.dim() == 1:
-                kept = y[:, 1:][:, token_indices]
-            else:
-                kept = torch.gather(y[:, 1:], 1, token_indices[..., None]
-                                    .expand(-1, -1, y.shape[-1]))
-            y = torch.cat([y[:, :1], kept], dim=1)
+            with trace.part("layout", y):
+                if token_indices.dim() == 1:
+                    kept = y[:, 1:][:, token_indices]
+                else:
+                    kept = torch.gather(y[:, 1:], 1, token_indices[..., None]
+                                        .expand(-1, -1, y.shape[-1]))
+                y = torch.cat([y[:, :1], kept], dim=1)
         tap_list = []
         attn_probes = probes.get("attn") if probes is not None else None
         for i, block in enumerate(self.blocks()):
@@ -168,7 +188,7 @@ class VisionTransformer(nn.Module):
                 # ~8 MB an image at ViT-B/16, and a B=4 battery's
                 # 180-image forwards would hold all twelve blocks' (~17 GB)
                 tap_list.append(tap)
-        logits = self.head(self.norm(y)[:, 0])
+        logits = linear(self.head, self.norm(y)[:, 0])
         if not taps:
             return logits
         stacked = {k: torch.stack([t[k] for t in tap_list])
